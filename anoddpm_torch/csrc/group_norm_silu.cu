@@ -1,4 +1,4 @@
-// Fused GroupNorm(32) + affine + SiLU, forward.
+// Fused GroupNorm(32) + affine + SiLU, forward (kernel K2).
 //
 // Replaces the TPU kernel `_kernel` of anoddpm_tpu/ops/pallas_norm.py
 // (launched by `_fused_call`, wrapped by `group_norm_silu`).
@@ -7,138 +7,364 @@
 //   y = x * (rstd * gamma_c) + (beta_c - mean * rstd * gamma_c)
 //   out = y * sigmoid(y), stored in x's dtype (fp32 or bf16)
 //
-// Bound: bytes.  The least traffic is one read and one write of x.  This
-// simple design reads x twice (once for the statistics, once for the
-// output), so it moves 1.5x the bound's bytes.
+// Bound: bytes.  The least traffic is one read and one write of x; the
+// arithmetic is a few operations per element.
 //
-// Design: x is NCHW-contiguous, so each (n, g) group is one contiguous run
-// of (C/32) H W elements.  Unlike the TPU kernel, which holds one sample in
-// VMEM, blocks here run in parallel with nothing carried between them, so
-// the statistics are a split reduction:
-//   pass 1  grid (chunks, 32, N): each block sums one chunk of one group in
-//           fp32 into partial sums of x and x^2 (wrapper-allocated scratch),
-//           with enough chunks that N * 32 * chunks fills the 132 SMs;
-//   pass 2  one thread per (n, g) adds its chunks' partials and writes mean
-//           and rstd, which stay available for the backward;
-//   pass 3  elementwise silu(x * scale_c + shift_c) over all of x, one
-//           column of blocks per (n, c) plane (grid.x = N C, so any batch
-//           fits the grid; grid.y splits the plane).
+// Design: one launch that reads x once.  x is NCHW-contiguous, so each
+// (n, g) group is one contiguous run of L = (C/32) H W elements.  The group
+// is cut into `cluster` slices of `slice_len` elements, one slice per block;
+// the blocks of one group form a thread-block cluster (up to 16 blocks; one
+// block when the group is small).  Each block
+//   1. stages its slice in shared memory with 1-D bulk async copies
+//      (cp.async.bulk in 4 chunks, each completing on its own mbarrier) and
+//      sums x and x^2 in fp32 over each chunk as it lands;
+//   2. combines the cluster's partial sums through distributed shared
+//      memory: every block adds all partials in rank order, so all blocks
+//      hold the same mean and rstd, and rank 0 writes them out;
+//   3. writes silu(x * scale_c + shift_c) from shared memory with 16-byte
+//      stores (8 bf16 or 4 fp32 a thread).
+// The wrapper (anoddpm_torch/ops/group_norm_silu.py, `plan`) picks the
+// cluster size, slice length, threads and shared-memory bytes.  A slice
+// larger than its staging budget is not staged: the block reads it twice
+// from global memory, the second time mostly from L2.  Where x or out is not
+// 16-byte aligned, or H W is not a multiple of the 16-byte vector, the block
+// runs the same two passes with scalar accesses straight from global memory.
 
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
 constexpr int GROUPS = 32;
-constexpr int THREADS = 256;
+constexpr int MAX_THREADS = 256;
+constexpr int CHUNKS = 4;
 
-__device__ __forceinline__ float load_f(const float* p, int64_t i) { return p[i]; }
-__device__ __forceinline__ float load_f(const __nv_bfloat16* p, int64_t i) {
-  return __bfloat162float(p[i]);
-}
-__device__ __forceinline__ void store_f(float* p, int64_t i, float v) { p[i] = v; }
-__device__ __forceinline__ void store_f(__nv_bfloat16* p, int64_t i, float v) {
-  p[i] = __float2bfloat16(v);
-}
+struct Params {
+  const void* x;
+  const float* gamma;
+  const float* beta;
+  void* out;
+  float* mean;
+  float* rstd;
+  int c;          // channels
+  int hw;         // H W
+  int group_len;  // (C / 32) H W
+  int cluster;    // blocks per group
+  int slice_len;  // elements per block, a multiple of the vector width
+  int vec;        // 16-byte accesses
+  int staged;     // stage the slice in shared memory (16-byte mode only)
+  float eps;
+};
 
-template <typename T>
-__global__ void partial_sums_kernel(const T* __restrict__ x,
-                                    float* __restrict__ partial,
-                                    int64_t group_len, int64_t chunk_len,
-                                    int chunks) {
-  const int chunk = blockIdx.x, g = blockIdx.y, n = blockIdx.z;
-  const int64_t base = ((int64_t)n * GROUPS + g) * group_len;
-  const int64_t begin = (int64_t)chunk * chunk_len;
-  int64_t end = begin + chunk_len;
-  if (end > group_len) end = group_len;
-  float s = 0.0f, ss = 0.0f;
-  for (int64_t i = begin + threadIdx.x; i < end; i += THREADS) {
-    const float v = load_f(x, base + i);
-    s += v;
-    ss += v * v;
+// 16 bytes of T, converted to and from fp32.
+template <typename T> struct Vec;
+template <> struct Vec<float> {
+  static constexpr int N = 4;
+  static __device__ __forceinline__ void load(const float* p, float* v) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
   }
+  static __device__ __forceinline__ void store(float* p, const float* v) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  }
+};
+template <> struct Vec<__nv_bfloat16> {
+  static constexpr int N = 8;
+  static __device__ __forceinline__ void load(const __nv_bfloat16* p,
+                                              float* v) {
+    const uint4 t = *reinterpret_cast<const uint4*>(p);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&t);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float2 f = __bfloat1622float2(h[k]);
+      v[2 * k] = f.x;
+      v[2 * k + 1] = f.y;
+    }
+  }
+  static __device__ __forceinline__ void store(__nv_bfloat16* p,
+                                               const float* v) {
+    uint4 t;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&t);
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      h[k] = __floats2bfloat162_rn(v[2 * k], v[2 * k + 1]);
+    *reinterpret_cast<uint4*>(p) = t;
+  }
+};
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ void from_f(float* p, float v) { *p = v; }
+__device__ __forceinline__ void from_f(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16(v);
+}
+
+__device__ __forceinline__ float silu(float y) {
+  return __fdividef(y, 1.0f + __expf(-y));
+}
+
+// Sum a and b over the warp; every lane gets the same totals.
+__device__ __forceinline__ void warp_sum2(float& a, float& b) {
   for (int off = 16; off > 0; off >>= 1) {
-    s += __shfl_down_sync(0xffffffffu, s, off);
-    ss += __shfl_down_sync(0xffffffffu, ss, off);
-  }
-  __shared__ float sh_s[THREADS / 32], sh_ss[THREADS / 32];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  if (lane == 0) { sh_s[warp] = s; sh_ss[warp] = ss; }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float ts = 0.0f, tss = 0.0f;
-    for (int k = 0; k < THREADS / 32; ++k) { ts += sh_s[k]; tss += sh_ss[k]; }
-    const int64_t slot = ((int64_t)n * GROUPS + g) * chunks + chunk;
-    partial[2 * slot] = ts;
-    partial[2 * slot + 1] = tss;
+    a += __shfl_xor_sync(0xffffffffu, a, off);
+    b += __shfl_xor_sync(0xffffffffu, b, off);
   }
 }
 
-__global__ void finalize_kernel(const float* __restrict__ partial,
-                                float* __restrict__ mean,
-                                float* __restrict__ rstd, int ngroups,
-                                int chunks, int64_t group_len, float eps) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;  // n * GROUPS + g
-  if (i >= ngroups) return;
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar))
+               : "memory");
+}
+
+// Copy `bytes` (a multiple of 16, both addresses 16-byte aligned) from
+// global to shared memory; `bar` completes when they have landed.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// Wait for the first phase of `bar` to complete.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar))
+        : "memory");
+  }
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// s += x, ss += x^2 over the 16-byte vectors at src[i], i = begin, begin +
+// step, ... < end.
+template <typename T>
+__device__ __forceinline__ void add_vectors(const T* src, int begin, int end,
+                                            int step, float& s, float& ss) {
+  constexpr int W = Vec<T>::N;
+  for (int i = begin; i < end; i += step) {
+    float v[W];
+    Vec<T>::load(src + i, v);
+#pragma unroll
+    for (int j = 0; j < W; ++j) {
+      s += v[j];
+      ss += v[j] * v[j];
+    }
+  }
+}
+
+// grid: (N * 32 * cluster) blocks; block b owns slice b % cluster of group
+// b / cluster.  Launched with cluster dims (cluster, 1, 1) when cluster > 1.
+template <typename T>
+__global__ void __launch_bounds__(MAX_THREADS)
+    group_norm_silu_kernel(const Params p) {
+  using V = Vec<T>;
+  constexpr int W = V::N;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ __align__(8) uint64_t bars[CHUNKS];
+  __shared__ float warp_sums[MAX_THREADS / 32][2];
+  __shared__ float block_sums[2];
+  __shared__ float stats[2];
+
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const int rank = (int)(blockIdx.x % (unsigned)p.cluster);
+  const int64_t group = blockIdx.x / (unsigned)p.cluster;  // n * 32 + g
+  const int lo = rank * p.slice_len;  // slice start within the group
+  const int len = min(p.slice_len, p.group_len - lo);
+  const int64_t base = group * (int64_t)p.group_len + lo;
+  const T* x = static_cast<const T*>(p.x) + base;
+  T* out = static_cast<T*>(p.out) + base;
+  T* buf = reinterpret_cast<T*>(smem);
+
+  // Pass 1: fp32 sum and sum of squares of the slice.
   float s = 0.0f, ss = 0.0f;
-  for (int c = 0; c < chunks; ++c) {
-    s += partial[2 * ((int64_t)i * chunks + c)];
-    ss += partial[2 * ((int64_t)i * chunks + c) + 1];
+  if (p.staged) {
+    const int chunk = (len / W + CHUNKS - 1) / CHUNKS * W;
+    if (tid == 0) {
+      for (int k = 0; k < CHUNKS; ++k) mbar_init(&bars[k]);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+    if (tid == 0) {
+      for (int k = 0; k < CHUNKS; ++k) {
+        const int b = k * chunk, e = min(len, b + chunk);
+        if (e > b)
+          bulk_load(buf + b, x + b, (uint32_t)((e - b) * sizeof(T)), &bars[k]);
+      }
+    }
+    for (int k = 0; k < CHUNKS; ++k) {
+      const int b = k * chunk, e = min(len, b + chunk);
+      if (e <= b) break;
+      mbar_wait(&bars[k]);
+      add_vectors(buf, b + tid * W, e, nthreads * W, s, ss);
+    }
+  } else if (p.vec) {
+    add_vectors(x, tid * W, len, nthreads * W, s, ss);
+  } else {
+    for (int i = tid; i < len; i += nthreads) {
+      const float v = to_f(x[i]);
+      s += v;
+      ss += v * v;
+    }
   }
-  const float inv_n = 1.0f / (float)group_len;
-  const float m = s * inv_n;
-  const float var = fmaxf(ss * inv_n - m * m, 0.0f);
-  mean[i] = m;
-  rstd[i] = rsqrtf(var + eps);
+
+  // The block's sums: each warp's, then warp 0 adds the warps'.
+  const int lane = tid % 32;
+  warp_sum2(s, ss);
+  if (lane == 0) {
+    warp_sums[tid / 32][0] = s;
+    warp_sums[tid / 32][1] = ss;
+  }
+  __syncthreads();
+  if (tid < 32) {
+    const bool has = lane < nthreads / 32;
+    s = has ? warp_sums[lane][0] : 0.0f;
+    ss = has ? warp_sums[lane][1] : 0.0f;
+    warp_sum2(s, ss);
+    if (lane == 0) {
+      block_sums[0] = s;
+      block_sums[1] = ss;
+    }
+  }
+  // The group's sums: warp 0 of every block of the cluster reads all blocks'
+  // sums through distributed shared memory, lane r those of rank r, and adds
+  // them in the same order, so that every block gets the same statistics.
+  if (p.cluster > 1) {
+    cluster_arrive();
+    cluster_wait();
+    if (tid < 32) {
+      s = ss = 0.0f;
+      if (lane < p.cluster) {
+        const float* other =
+            cg::this_cluster().map_shared_rank(block_sums, lane);
+        s = other[0];
+        ss = other[1];
+      }
+      warp_sum2(s, ss);
+    }
+  }
+  if (tid == 0) {
+    const float inv_n = 1.0f / (float)p.group_len;
+    const float m = s * inv_n;
+    const float var = fmaxf(ss * inv_n - m * m, 0.0f);
+    const float r = rsqrtf(var + p.eps);
+    stats[0] = m;
+    stats[1] = r;
+    if (rank == 0 && p.mean != nullptr) {
+      p.mean[group] = m;
+      p.rstd[group] = r;
+    }
+  }
+  __syncthreads();
+  // This block has read the others' sums; they may exit once all have.
+  if (p.cluster > 1) cluster_arrive();
+
+  // Pass 2: silu(x * scale_c + shift_c); channel = g C/32 + (offset / H W).
+  const float mean = stats[0], rstd = stats[1];
+  const int ch0 = (int)(group % GROUPS) * (p.c / GROUPS);
+  if (p.vec) {
+    const T* src = p.staged ? buf : x;
+    for (int i = tid * W; i < len; i += nthreads * W) {
+      const int ch = ch0 + (lo + i) / p.hw;
+      const float scale = rstd * __ldg(p.gamma + ch);
+      const float shift = __ldg(p.beta + ch) - mean * scale;
+      float v[W];
+      V::load(src + i, v);
+#pragma unroll
+      for (int j = 0; j < W; ++j) v[j] = silu(v[j] * scale + shift);
+      V::store(out + i, v);
+    }
+  } else {
+    for (int i = tid; i < len; i += nthreads) {
+      const int ch = ch0 + (lo + i) / p.hw;
+      const float scale = rstd * __ldg(p.gamma + ch);
+      const float shift = __ldg(p.beta + ch) - mean * scale;
+      from_f(out + i, silu(to_f(x[i]) * scale + shift));
+    }
+  }
+  if (p.cluster > 1) cluster_wait();
 }
 
-// One block column per (n, c) plane: the channel's scale and shift are
-// computed once, then the block walks its share of the H W elements.
+cudaLaunchConfig_t launch_config(int blocks, int cluster, int threads,
+                                 int smem, cudaStream_t stream,
+                                 cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)blocks);
+  cfg.blockDim = dim3((unsigned)threads);
+  cfg.dynamicSmemBytes = (size_t)smem;
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = (unsigned)cluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = cluster > 1 ? 1 : 0;
+  return cfg;
+}
+
+// Allow the kernel the most dynamic shared memory a block can opt into and
+// clusters above the portable 8, then count how many clusters of this shape
+// the card can hold at once (0: it cannot be scheduled).
 template <typename T>
-__global__ void apply_kernel(const T* __restrict__ x,
-                             const float* __restrict__ gamma,
-                             const float* __restrict__ beta,
-                             const float* __restrict__ mean,
-                             const float* __restrict__ rstd,
-                             T* __restrict__ out, int c, int64_t hw) {
-  const int64_t row = blockIdx.x;  // n * c + ch
-  const int ch = (int)(row % c);
-  const int64_t ng = (row / c) * GROUPS + ch / (c / GROUPS);
-  const float scale = rstd[ng] * gamma[ch];
-  const float shift = beta[ch] - mean[ng] * scale;
-  const int64_t base = row * hw;
-  for (int64_t j = (int64_t)blockIdx.y * THREADS + threadIdx.x; j < hw;
-       j += (int64_t)gridDim.y * THREADS) {
-    const float y = load_f(x, base + j) * scale + shift;
-    store_f(out, base + j, y / (1.0f + __expf(-y)));
-  }
+cudaError_t prepare(int cluster, int threads, int smem, int* max_clusters) {
+  auto kernel = group_norm_silu_kernel<T>;
+  int device = 0, optin = 0;
+  cudaFuncAttributes attrs;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                                 device);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attrs, kernel);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               optin - (int)attrs.sharedSizeBytes);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg =
+      launch_config(cluster, cluster, threads, smem, nullptr, &attr);
+  cfg.numAttrs = 1;  // the query needs the cluster shape, even of 1 block
+  return cudaOccupancyMaxActiveClusters(max_clusters, (void*)kernel, &cfg);
 }
 
 template <typename T>
-int launch(const void* x, const void* gamma, const void* beta, void* out,
-           void* mean, void* rstd, void* partial, int n, int c, int64_t hw,
-           int chunks, float eps, cudaStream_t stream) {
-  const int64_t group_len = (int64_t)(c / GROUPS) * hw;
-  const int64_t chunk_len = (group_len + chunks - 1) / chunks;
-  partial_sums_kernel<T><<<dim3(chunks, GROUPS, n), THREADS, 0, stream>>>(
-      (const T*)x, (float*)partial, group_len, chunk_len, chunks);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int ngroups = n * GROUPS;
-  finalize_kernel<<<(ngroups + THREADS - 1) / THREADS, THREADS, 0, stream>>>(
-      (const float*)partial, (float*)mean, (float*)rstd, ngroups, chunks,
-      group_len, eps);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  // Up to 4 elements a thread; the plane split stays within grid.y's 65535.
-  int64_t per_row = (hw + 4 * THREADS - 1) / (4 * THREADS);
-  if (per_row > 65535) per_row = 65535;
-  apply_kernel<T><<<dim3((unsigned)(n * c), (unsigned)per_row), THREADS, 0,
-                    stream>>>(
-      (const T*)x, (const float*)gamma, (const float*)beta,
-      (const float*)mean, (const float*)rstd, (T*)out, c, hw);
-  return (int)cudaGetLastError();
+cudaError_t launch(const Params& p, int n, int threads, int smem,
+                   cudaStream_t stream) {
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = launch_config(
+      n * GROUPS * p.cluster, p.cluster, threads, smem, stream, &attr);
+  cudaError_t err = cudaLaunchKernelEx(&cfg, group_norm_silu_kernel<T>, p);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 }  // namespace
@@ -149,19 +375,46 @@ const char* cuda_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// x, out: (n, c, hw) NCHW-contiguous, fp32 (dtype_code 0) or bf16 (1);
-// gamma, beta: (c,) fp32; mean, rstd: (n, 32) fp32;
-// partial: (n, 32, chunks, 2) fp32 scratch.
-int group_norm_silu_forward(const void* x, const void* gamma, const void* beta,
-                            void* out, void* mean, void* rstd, void* partial,
-                            int n, int c, long long hw, int chunks, float eps,
-                            int dtype_code, void* stream) {
+// Set the kernel's attributes on the current device and count the clusters
+// of (cluster, threads, smem) it can hold at once into *max_clusters.
+int group_norm_silu_prepare(int dtype_code, int cluster, int threads, int smem,
+                            int* max_clusters) {
   if (dtype_code == 0)
-    return launch<float>(x, gamma, beta, out, mean, rstd, partial, n, c, hw,
-                         chunks, eps, (cudaStream_t)stream);
+    return (int)prepare<float>(cluster, threads, smem, max_clusters);
   if (dtype_code == 1)
-    return launch<__nv_bfloat16>(x, gamma, beta, out, mean, rstd, partial, n,
-                                 c, hw, chunks, eps, (cudaStream_t)stream);
+    return (int)prepare<__nv_bfloat16>(cluster, threads, smem, max_clusters);
+  return (int)cudaErrorInvalidValue;
+}
+
+// x, out: (n, c, hw) NCHW-contiguous, fp32 (dtype_code 0) or bf16 (1);
+// gamma, beta: (c,) fp32; stats: (2, n, 32) fp32, mean then rstd, or null
+// to skip them.
+// cluster, slice_len, threads, smem: the wrapper's plan.
+int group_norm_silu_forward(const void* x, const void* gamma, const void* beta,
+                            void* out, void* stats, int n, int c, int hw,
+                            int cluster, int slice_len, int threads, int smem,
+                            float eps, int dtype_code, void* stream) {
+  const int width = dtype_code == 0 ? 4 : 8;  // elements in 16 bytes
+  Params p;
+  p.x = x;
+  p.gamma = (const float*)gamma;
+  p.beta = (const float*)beta;
+  p.out = out;
+  p.mean = (float*)stats;
+  p.rstd = stats == nullptr ? nullptr : (float*)stats + n * GROUPS;
+  p.c = c;
+  p.hw = hw;
+  p.group_len = c / GROUPS * hw;
+  p.cluster = cluster;
+  p.slice_len = slice_len;
+  p.vec = hw % width == 0 && (uintptr_t)x % 16 == 0 && (uintptr_t)out % 16 == 0;
+  p.staged = smem > 0 && p.vec;
+  p.eps = eps;
+  if (dtype_code == 0)
+    return (int)launch<float>(p, n, threads, smem, (cudaStream_t)stream);
+  if (dtype_code == 1)
+    return (int)launch<__nv_bfloat16>(p, n, threads, smem,
+                                      (cudaStream_t)stream);
   return (int)cudaErrorInvalidValue;
 }
 

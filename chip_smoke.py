@@ -10,9 +10,13 @@ PyTorch built for CUDA.  Phases, each of which fails the run when it fails:
 2. build every kernel of the detection path from `anoddpm_torch/csrc/`;
 3. kernel K1 (simplex octave field) against its plain PyTorch version at the
    main path's shape: 4 fields of 256^2, 6 octaves, per-field t;
-4. kernel K2 (GroupNorm(32)+SiLU) against its plain version at every
-   (C, H, W) that args256syn128's UNet gives it at batch 4, in fp32 and
-   bf16, with `F.silu(F.group_norm(...))` timed as the library yardstick;
+4. kernel K2 (GroupNorm(32)+SiLU), with its mean and rstd, against its
+   plain version at every (C, H, W) that args256syn128's UNet gives it at
+   batch 4, in fp32 and bf16, with `F.silu(F.group_norm(...))` timed as the
+   library yardstick;
+   each kernel's time back to back (host gaps included), its device-only
+   time (calls captured in a CUDA graph and replayed) and its host
+   microseconds per call at a small shape;
 5. a small fp32 UNet chain on the card against the same chain on the CPU
    (plain versions), with one injected noise bank;
 6. the main path: args256syn128 at full width (256^2, base 128, lambda 200
@@ -37,7 +41,13 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
-FP32_OPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
+# H100 SXM issue rates, per SM and clock (132 SMs at the 1.98 GHz boost clock
+# that the data sheet's 67 TFLOP/s fp32 = 132 x 128 x 2 FMA x clock assumes):
+# 4 schedulers x 32 lanes issue 128 instructions, the fp32 pipes take 128,
+# the int32 pipes 64, conversions and the MUFU unit 16 (CUDA C++ Programming
+# Guide, arithmetic instruction throughput, compute capability 9.0).
+SM_CLOCKS_PER_S = 132 * 1.98e9
+ISSUE_PER_CLOCK = {"all": 128, "int32": 64, "cvt": 16}
 DEVICE = "cuda"
 CONFIG = "256syn128"
 BATCH = 4                   # slices per volume: the main path's batch
@@ -45,13 +55,30 @@ LAMBDA = 200
 VOLUMES = 2
 K1_TOL = 1e-5               # K1 vs plain, per pixel; >= 99.7% must be within
 K2_TOL = 1e-4               # K2 vs plain: atol = rtol (fp32); bf16: 1 ulp
-# K1's ALU operations, counted from csrc/simplex3_octave_field.cu: the cell
-# walk, region tests, extra-vertex offsets and octave accumulation per
-# pixel and octave, and the offset, falloff, lattice hash, gradient and dot
-# product per lattice vertex evaluated (4 corners in the two tetrahedron
-# regions, 6 in the octahedron, plus 2 extra vertices everywhere).
-K1_OPS_PER_PIXEL_OCTAVE = 64
-K1_OPS_PER_VERTEX = 70
+K2_STATS_TOL = 1e-5         # K2's fp32 mean and rstd vs plain, absolute
+K2_HOST_SHAPE = (4, 512, 8, 8)  # the main path's most frequent K2 shape
+# K1's instructions by class, counted from csrc/simplex3_octave_field.cu for
+# one thread (fp32: each __f*_rn, float compare, select and max; int32:
+# integer multiply, add, logic, shift, compare and select; cvt: floor,
+# float<->int conversion and the MUFU reciprocal of the division):
+# - per pixel and octave: the octave loop (scale, accumulate), the skew and
+#   cell, in-cell and squish terms, region tests and the final division;
+# - per region: the extra-vertex logic (ext_region1/2 in the tetrahedra,
+#   ext_region3 in the octahedron);
+# - per lattice vertex: squish offset, falloff, lattice hash (3 multiplies,
+#   xor, 3 mix rounds, mod 24), gradient selects, dot product, accumulate;
+#   plus one fp32 subtract and one int32 add per nonzero offset of a cube
+#   corner (the zero ones fold away), and runtime offsets for the 2 extra
+#   vertices (3 subtracts, 3 adds, the offset sum and 4 conversions).
+# Corners visited: region 1 (in_sum <= 1) the 4 with offset sum 0 or 1 (3
+# nonzero offsets), region 2 (>= 2) the 4 with sum 2 or 3 (9), the
+# octahedron the 6 with sum 1 or 2 (9).
+K1_PER_PIXEL_OCTAVE = {"fp32": 34, "int32": 5, "cvt": 7}
+K1_PER_REGION = {"tetra": {"fp32": 10, "int32": 17},
+                 "octa": {"fp32": 19, "int32": 22}}
+K1_PER_CORNER = {"fp32": 25, "int32": 25}
+K1_PER_EXTRA_VERTEX = {"fp32": 29, "int32": 30, "cvt": 4}
+K1_CORNERS = {"r1": (4, 3), "r2": (4, 9), "octa": (6, 9)}  # (corners, offsets)
 
 
 def log(msg):
@@ -65,7 +92,8 @@ def require(ok, msg):
 
 
 def cuda_ms(fn, reps):
-    """Mean device milliseconds of fn() over reps launches, after a warm-up."""
+    """Mean milliseconds of fn() over reps calls back to back, after a
+    warm-up: device time, plus the host's gaps where it cannot keep up."""
     fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -75,6 +103,43 @@ def cuda_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps=20, replays=3):
+    """Device-only milliseconds per fn(): `reps` calls captured in one CUDA
+    graph, replayed `replays` times and timed with CUDA events, so that the
+    host's per-call cost is out of the way."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * replays)
+
+
+def host_us(fn, calls=1000):
+    """Host microseconds per fn() call, at a shape where the device keeps up
+    with the host (so the launch queue never fills)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    per_call = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return per_call
 
 
 def device_info():
@@ -99,22 +164,40 @@ def build_kernels():
         f"into {_build.BUILD_DIR}")
 
 
-def k1_operations(t, shape_hw, octaves, frequency):
-    """K1's ALU operations for these inputs: the vertices each pixel visits
-    depend on the region of its lattice cell, counted here per octave."""
+def k1_instructions(t, shape_hw, octaves, frequency):
+    """K1's instructions by class for these inputs: which corners a pixel
+    visits depends on the region of its lattice cell, counted per octave."""
     from anoddpm_torch.ops import simplex as sx
     h, w = shape_hw
     yy = torch.arange(h, dtype=torch.float32, device=t.device).view(1, h, 1)
     xx = torch.arange(w, dtype=torch.float32, device=t.device).view(1, 1, w)
-    ops = 0
+    count = {"fp32": 0, "int32": 0, "cvt": 0}
     for scale, _ in sx.octave_schedule(octaves, 0.8, frequency):
         x, y, z = torch.broadcast_tensors(xx * scale, yy * scale,
                                           t.view(-1, 1, 1) * scale)
         _, _, in_sum = sx._skew(x, y, z)
-        middle = ((in_sum > 1.0) & (in_sum < 2.0)).sum().item()
-        vertices = 6 * x.numel() + 2 * middle    # 4 or 6 corners, 2 extras
-        ops += K1_OPS_PER_PIXEL_OCTAVE * x.numel() + K1_OPS_PER_VERTEX * vertices
-    return ops
+        pixels = {"r1": (in_sum <= 1.0).sum().item(),
+                  "r2": (in_sum >= 2.0).sum().item()}
+        pixels["octa"] = x.numel() - pixels["r1"] - pixels["r2"]
+        for region, n in pixels.items():
+            corners, offsets = K1_CORNERS[region]
+            per = K1_PER_REGION["octa" if region == "octa" else "tetra"]
+            for k in count:
+                count[k] += n * (K1_PER_PIXEL_OCTAVE.get(k, 0) + per.get(k, 0)
+                                 + corners * K1_PER_CORNER.get(k, 0)
+                                 + 2 * K1_PER_EXTRA_VERTEX.get(k, 0))
+            count["fp32"] += n * offsets
+            count["int32"] += n * offsets
+    return count
+
+
+def issue_bound_ms(count):
+    """Least milliseconds to issue these instructions: the larger of all of
+    them at the schedulers' rate and each narrow class at its own pipe's."""
+    need = {"all": sum(count.values()), "int32": count["int32"],
+            "cvt": count["cvt"]}
+    return max(need[k] / (ISSUE_PER_CLOCK[k] * SM_CLOCKS_PER_S)
+               for k in need) * 1e3
 
 
 def check_k1():
@@ -132,18 +215,27 @@ def check_k1():
     max_err = diff.max().item()
     require(torch.isfinite(got).all(), "K1 gave non-finite values")
     require(within >= 0.997, f"K1: only {within:.5f} of pixels within {K1_TOL}")
-    ms = cuda_ms(lambda: sx.batched_fractal3_fixed_t(seeds, t, hw, octaves, 0.8, freq), 50)
+    field = lambda: sx.batched_fractal3_fixed_t(seeds, t, hw, octaves, 0.8, freq)
+    ms = cuda_ms(field, 50)
+    device_ms = graph_ms(field)
     plain_ms = cuda_ms(lambda: sx._fractal3_fixed_t_plain(seeds, t, hw, octaves, 0.8, freq), 5)
-    ops = k1_operations(t, hw, octaves, freq)
-    bound = max(4 * n * hw[0] * hw[1] / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S) * 1e3
+    small = lambda: sx.batched_fractal3_fixed_t(seeds, t, (16, 16), octaves, 0.8, freq)
+    host = host_us(small)
+    count = k1_instructions(t, hw, octaves, freq)
+    bound = max(4 * n * hw[0] * hw[1] / HBM_BYTES_PER_S * 1e3,
+                issue_bound_ms(count))
     log(f"K1 n={n} {hw[0]}x{hw[1]} oct={octaves}: mismatch fraction "
         f"{1 - within:.3e} (|d|>{K1_TOL}), max|d| {max_err:.3e}, kernel "
-        f"{ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound:.4f} ms "
-        f"({ops:.3e} ops), std {got.std().item():.4f}")
+        f"{ms:.4f} ms back to back, {device_ms:.4f} ms device-only, plain "
+        f"{plain_ms:.3f} ms, bound {bound:.4f} ms (instructions: "
+        f"{count['fp32']:.4e} fp32, {count['int32']:.4e} int32, "
+        f"{count['cvt']:.4e} cvt); host {host:.2f} us per call at n={n} "
+        f"16x16; std {got.std().item():.4f}")
     return dict(name="simplex3_octave_field", route="cuda",
                 source="anoddpm_torch/csrc/simplex3_octave_field.cu",
                 replaces="scripts/pallas_vs_xla_noise.py:41",
-                max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                max_abs_err=max_err, ms=ms, device_ms=device_ms,
+                host_us_per_call=host, plain_ms=plain_ms, bound_ms=bound,
                 bound_by="operations", library_ms=None)
 
 
@@ -182,9 +274,14 @@ def check_k2(sites):
         beta = 0.1 * torch.randn(c, generator=gen, device=DEVICE)
         for dtype in (torch.float32, torch.bfloat16):
             x = x32.to(dtype)
-            got = gn.group_norm_silu(x, gamma, beta).float()
-            want = gn._plain(x, gamma, beta, 1e-5)[0].float()
+            got, mean, rstd = gn.group_norm_silu_with_stats(x, gamma, beta)
+            want, wmean, wrstd = gn._plain(x, gamma, beta, 1e-5)
+            got, want = got.float(), want.float()
             diff = (got - want).abs()
+            stats_err = max((mean - wmean).abs().max().item(),
+                            (rstd - wrstd).abs().max().item())
+            require(stats_err <= K2_STATS_TOL,
+                    f"K2 {shape} {dtype}: mean/rstd off by {stats_err:.3e}")
             if dtype == torch.float32:
                 ok = (diff <= K2_TOL + K2_TOL * want.abs()).all().item()
             else:
@@ -193,25 +290,48 @@ def check_k2(sites):
             max_err = max(max_err, err)
             require(ok,
                     f"K2 {shape} {dtype}: max|d| {err:.3e} out of tolerance")
-            ms = cuda_ms(lambda: gn.group_norm_silu(x, gamma, beta), 20)
-            plain_ms = cuda_ms(lambda: gn._plain(x, gamma, beta, 1e-5), 5)
+            kernel = lambda: gn.group_norm_silu(x, gamma, beta)
             g_, b_ = gamma.to(dtype), beta.to(dtype)
-            lib_ms = cuda_ms(lambda: F.silu(F.group_norm(x, 32, g_, b_)), 20)
+            library = lambda: F.silu(F.group_norm(x, 32, g_, b_))
+            ms, lib_ms = cuda_ms(kernel, 20), cuda_ms(library, 20)
+            dev_ms, lib_dev_ms = graph_ms(kernel), graph_ms(library)
+            plain_ms = cuda_ms(lambda: gn._plain(x, gamma, beta, 1e-5), 5)
             bound = 2 * x.numel() * x.element_size() / HBM_BYTES_PER_S * 1e3
-            timing[(shape, dtype)] = (ms, plain_ms, lib_ms, bound)
-            log(f"K2 {shape} {str(dtype)[6:]}: max|d| {err:.3e}, kernel "
-                f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, "
-                f"bound {bound:.4f} ms")
+            timing[(shape, dtype)] = (ms, dev_ms, plain_ms, lib_ms, lib_dev_ms,
+                                      bound)
+            plan = gn.plan(shape[0], c, shape[2] * shape[3], dtype)
+            log(f"K2 {shape} {str(dtype)[6:]} {plan}: max|d| {err:.3e}, "
+                f"mean/rstd {stats_err:.3e}; kernel {ms:.4f} ms back to back, "
+                f"{dev_ms:.4f} ms device-only; plain {plain_ms:.4f} ms; "
+                f"library {lib_ms:.4f} ms back to back, {lib_dev_ms:.4f} ms "
+                f"device-only; bound {bound:.4f} ms")
     # one UNet forward's worth: the 85 calls at their own shapes and dtypes
-    total = [sum(timing[s][i] for s in sites) for i in range(4)]
-    log(f"K2 per UNet forward ({len(sites)} calls): kernel {total[0]:.3f} ms, "
-        f"plain {total[1]:.3f} ms, library {total[2]:.3f} ms, bound "
-        f"{total[3]:.3f} ms")
+    total = [sum(timing[s][i] for s in sites) for i in range(6)]
+    host, lib_host = k2_host_us()
+    log(f"K2 per UNet forward ({len(sites)} calls): kernel {total[0]:.3f} ms "
+        f"back to back, {total[1]:.3f} ms device-only; plain {total[2]:.3f} ms; "
+        f"library {total[3]:.3f} ms back to back, {total[4]:.3f} ms "
+        f"device-only; bound {total[5]:.3f} ms; host {host:.2f} us per call "
+        f"(library {lib_host:.2f} us) at {K2_HOST_SHAPE} bf16")
     return dict(name="group_norm_silu", route="cuda",
                 source="anoddpm_torch/csrc/group_norm_silu.cu",
                 replaces="anoddpm_tpu/ops/pallas_norm.py:63",
-                max_abs_err=max_err, ms=total[0], plain_ms=total[1],
-                bound_ms=total[3], bound_by="bytes", library_ms=total[2])
+                max_abs_err=max_err, ms=total[0], device_ms=total[1],
+                host_us_per_call=host, plain_ms=total[2], bound_ms=total[5],
+                bound_by="bytes", library_ms=total[3])
+
+
+def k2_host_us():
+    """Host microseconds per K2 call, and per library call, at a small
+    shape of the main path."""
+    import torch.nn.functional as F
+    from anoddpm_torch.ops import group_norm_silu as gn
+    x = torch.randn(K2_HOST_SHAPE, device=DEVICE).to(torch.bfloat16)
+    gamma = torch.ones(K2_HOST_SHAPE[1], device=DEVICE)
+    beta = torch.zeros(K2_HOST_SHAPE[1], device=DEVICE)
+    g_, b_ = gamma.to(x.dtype), beta.to(x.dtype)
+    return (host_us(lambda: gn.group_norm_silu(x, gamma, beta)),
+            host_us(lambda: F.silu(F.group_norm(x, 32, g_, b_))))
 
 
 def check_small_chain():
@@ -355,7 +475,8 @@ def main():
     k1_row["launches"], k2_row["launches"] = main_path(model, args, len(sites))
     log(f"total {time.time() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "ms", "device_ms", "host_us_per_call", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: row[k] for k in keys}
                                   for row in (k1_row, k2_row)]}))
     print(json.dumps({"ok": True, "device": {

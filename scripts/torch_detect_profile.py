@@ -23,7 +23,7 @@ from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 KINDS = [  # first match wins
     ("K1 simplex field", r"octave_field"),
-    ("K2 group_norm_silu", r"partial_sums_kernel|finalize_kernel|apply_kernel"),
+    ("K2 group_norm_silu", r"group_norm_silu_kernel"),
     ("conv", r"conv|fprop|implicit|dgrad|wgrad"),
     ("layout transpose", r"nchwToNhwc|nhwcToNchw|nchw.*nhwc|nhwc.*nchw"),
     ("matmul", r"gemm|cutlass|xmma"),

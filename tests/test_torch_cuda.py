@@ -35,28 +35,74 @@ def test_simplex_kernel_matches_plain(cuda, n, h, w):
     assert ((got - want).abs() <= 1e-5).float().mean().item() >= 0.997
 
 
-@pytest.mark.parametrize("shape", [(2, 64, 16, 16), (1, 96, 7, 9),
-                                   (4, 256, 64, 64),
-                                   (72, 1024, 2, 2)])  # N*C > 65535 planes
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_group_norm_silu_kernel_matches_plain(cuda, shape, dtype):
-    gen = torch.Generator(device=cuda).manual_seed(1)
-    x = (torch.randn(shape, generator=gen, device=cuda) * 2 + 0.5).to(dtype)
-    gamma = 1 + 0.1 * torch.randn(shape[1], generator=gen, device=cuda)
-    beta = 0.1 * torch.randn(shape[1], generator=gen, device=cuda)
+def _check_group_norm_silu(x, gamma, beta):
+    """One K2 call against the plain version: output within atol = rtol =
+    1e-4 (fp32) or one bf16 ulp (1e-4 floor), mean and rstd within 1e-5."""
     before = gn.group_norm_silu.launches
     got, mean, rstd = gn.group_norm_silu_with_stats(x, gamma, beta)
     assert gn.group_norm_silu.launches == before + 1
+    assert torch.equal(gn.group_norm_silu(x, gamma, beta), got)  # no stats kept
     want, wmean, wrstd = gn._plain(x, gamma, beta, 1e-5)
-    assert got.dtype == dtype
+    assert got.dtype == x.dtype and mean.shape == rstd.shape == (x.shape[0], 32)
     torch.testing.assert_close(mean, wmean, atol=1e-5, rtol=1e-5)
     torch.testing.assert_close(rstd, wrstd, atol=1e-5, rtol=1e-4)
     diff = (got.float() - want.float()).abs()
-    if dtype == torch.float32:
-        assert (diff <= 1e-4 + 1e-4 * want.abs()).all()
+    if x.dtype == torch.float32:
+        assert (diff <= 1e-4 + 1e-4 * want.float().abs()).all()
     else:
         ulp = torch.exp2(torch.floor(torch.log2(want.float().abs().clamp_min(1e-30))) - 7)
         assert (diff <= ulp.clamp_min(1e-4)).all()
+
+
+def _inputs(shape, dtype, device, seed=1):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = (torch.randn(shape, generator=gen, device=device) * 2 + 0.5).to(dtype)
+    gamma = 1 + 0.1 * torch.randn(shape[1], generator=gen, device=device)
+    beta = 0.1 * torch.randn(shape[1], generator=gen, device=device)
+    return x, gamma, beta
+
+
+@pytest.mark.parametrize("shape", [(2, 64, 16, 16), (1, 96, 7, 9),
+                                   (4, 256, 64, 64),
+                                   (72, 1024, 2, 2),  # N*C > 65535 planes
+                                   (1, 32, 1, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_group_norm_silu_kernel_matches_plain(cuda, shape, dtype):
+    _check_group_norm_silu(*_inputs(shape, dtype, cuda))
+
+
+@pytest.mark.parametrize("shape,dtype", [((4, 256, 256, 256), torch.bfloat16),
+                                         ((4, 128, 256, 256), torch.float32),
+                                         ((2, 256, 256, 256), torch.float32)])
+def test_group_norm_silu_cluster_shapes(cuda, shape, dtype):
+    """Groups of 1-2 MB: clusters of 16 blocks (the last one read twice
+    instead of staged)."""
+    assert gn.plan(shape[0], shape[1], shape[2] * shape[3], dtype).cluster == 16
+    _check_group_norm_silu(*_inputs(shape, dtype, cuda))
+
+
+@pytest.mark.parametrize("offset", [1, 3])
+def test_group_norm_silu_unaligned_x(cuda, offset):
+    """x at a storage offset that breaks 16-byte alignment."""
+    x, gamma, beta = _inputs((2, 64, 32, 32), torch.bfloat16, cuda)
+    flat = torch.empty(x.numel() + offset, dtype=x.dtype, device=cuda)
+    xu = flat[offset:].view(x.shape)
+    xu.copy_(x)
+    assert xu.data_ptr() % 16 != 0 and xu.is_contiguous()
+    _check_group_norm_silu(xu, gamma, beta)
+
+
+def test_group_norm_silu_is_one_kernel_launch(cuda):
+    from torch.profiler import ProfilerActivity, profile
+    x, gamma, beta = _inputs((4, 256, 64, 64), torch.bfloat16, cuda)
+    gn.group_norm_silu(x, gamma, beta)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        gn.group_norm_silu(x, gamma, beta)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert [e.name for e in kernels if "group_norm_silu" in e.name] and len(kernels) == 1, \
+        [e.name for e in kernels]
 
 
 def test_group_norm_silu_rejects_channels_last(cuda):

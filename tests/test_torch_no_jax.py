@@ -25,7 +25,8 @@ def test_import_loads_no_jax():
 def test_sources_import_no_jax():
     pattern = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|anoddpm_tpu)\b",
                          re.MULTILINE)
-    files = sorted((ROOT / "anoddpm_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = (sorted((ROOT / "anoddpm_torch").rglob("*.py"))
+             + sorted((ROOT / "scripts").glob("torch_*.py")) + [ROOT / "chip_smoke.py"])
     assert len(files) > 10
     offenders = [str(f) for f in files if pattern.search(f.read_text())]
     assert not offenders
