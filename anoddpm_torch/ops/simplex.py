@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -293,15 +294,74 @@ def _fractal3_fixed_t_plain(seeds: torch.Tensor, t: torch.Tensor,
     return acc
 
 
+# Each warp of kernel K1 covers TILE_H x TILE_W pixels of one field: the
+# WARP_H x WARP_W of csrc/simplex3_octave_field.cu.
+TILE_H, TILE_W = 4, 8
+
+
+def launch_plan(n: int, h: int, w: int, warps_per_block: int,
+                resident: int) -> int:
+    """Blocks of the K1 launch for n fields of h x w pixels, with blocks of
+    `warps_per_block` warps on a card that holds `resident` blocks at once:
+    as many as the card holds, fewer only when there are fewer tiles than
+    warps (the warps walk the tiles grid-stride).  Raises on what the
+    kernel does not take."""
+    if n < 1 or h < 1 or w < 1:
+        raise ValueError(f"batched_fractal3_fixed_t: empty output ({n}, {h}, {w})")
+    if warps_per_block < 1 or resident < 1:
+        raise ValueError(f"batched_fractal3_fixed_t: {resident} resident "
+                         f"blocks of {warps_per_block} warps")
+    tiles = n * -(-h // TILE_H) * -(-w // TILE_W)
+    if tiles >= 2 ** 30 or max(h, w) > 2 ** 30:
+        raise ValueError(f"batched_fractal3_fixed_t: ({n}, {h}, {w}) exceeds "
+                         "the kernel's int32 tile index")
+    return min(-(-tiles // warps_per_block), resident)
+
+
+class Attributes(NamedTuple):
+    """Kernel K1 as built for one card (`cudaFuncGetAttributes` and
+    `cudaOccupancyMaxActiveBlocksPerMultiprocessor`)."""
+    registers: int          # per thread
+    local_bytes: int        # per thread: spills
+    shared_bytes: int       # static, per block
+    threads: int            # per block
+    blocks_per_sm: int      # resident at once
+    resident: int           # blocks_per_sm x the card's SMs
+
+
 @functools.cache
 def _kernel():
     """The built library and its C entry, with argument types declared."""
     lib = _build.load("simplex3_octave_field")
     fn = lib.simplex3_octave_field
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
-        ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
+        ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib, fn
+
+
+@functools.lru_cache(maxsize=None)
+def attributes(device: int) -> Attributes:
+    """K1's registers, spills and occupancy on card `device`."""
+    lib, _ = _kernel()
+    out = (ctypes.c_int * 5)()
+    with torch.cuda.device(device):
+        status = lib.simplex3_octave_field_attributes(out)
+    _build.check(lib, status, "simplex3_octave_field attributes")
+    regs, local, shared, threads, per_sm = out
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return Attributes(regs, local, shared, threads, per_sm, per_sm * sms)
+
+
+@functools.lru_cache(maxsize=None)
+def _launch_args(n: int, h: int, w: int, octaves: int, persistence: float,
+                 frequency: float, device: int):
+    """The kernel's arguments after the three pointers, up to the stream:
+    worked out and checked once per call signature."""
+    attr = attributes(device)
+    blocks = launch_plan(n, h, w, attr.threads // 32, attr.resident)
+    return (n, int(h), int(w), int(octaves), float(persistence), float(frequency),
+            blocks)
 
 
 def batched_fractal3_fixed_t(seeds: torch.Tensor, t: torch.Tensor, shape_hw,
@@ -316,22 +376,25 @@ def batched_fractal3_fixed_t(seeds: torch.Tensor, t: torch.Tensor, shape_hw,
     if seeds.dim() != 1 or t.shape != (n,):
         raise ValueError(f"seeds and t must both be (n,), got "
                          f"{tuple(seeds.shape)} and {tuple(t.shape)}")
-    if seeds.device.type == "cpu":
+    if seeds.is_cpu:
         return _fractal3_fixed_t_plain(seeds, t, shape_hw, octaves,
                                        persistence, frequency)
-    if seeds.device.type != "cuda" or t.device != seeds.device:
+    if not seeds.is_cuda or t.device != seeds.device:
         raise ValueError(f"seeds on {seeds.device} and t on {t.device}: "
                          "both must be on one CUDA device or the CPU")
-    h, w = (int(s) for s in shape_hw)
-    seeds = seeds.to(torch.int64).contiguous()
-    t = t.to(torch.float32).contiguous()
-    out = torch.empty((n, h, w), dtype=torch.float32, device=seeds.device)
+    h, w = shape_hw
     if n == 0:
-        return out
+        return seeds.new_empty((0, h, w), dtype=torch.float32)
+    if seeds.dtype is not torch.int64 or not seeds.is_contiguous():
+        seeds = seeds.to(torch.int64).contiguous()
+    if t.dtype is not torch.float32 or not t.is_contiguous():
+        t = t.to(torch.float32).contiguous()
+    device = seeds.get_device()
+    args = _launch_args(n, h, w, octaves, persistence, frequency, device)
+    out = seeds.new_empty((n, h, w), dtype=torch.float32)
     lib, fn = _kernel()
-    stream = torch.cuda.current_stream(seeds.device).cuda_stream
-    status = fn(seeds.data_ptr(), t.data_ptr(), out.data_ptr(), n, h, w,
-                int(octaves), float(persistence), float(frequency), stream)
+    status = fn(seeds.data_ptr(), t.data_ptr(), out.data_ptr(), *args,
+                torch._C._cuda_getCurrentRawStream(device))
     _build.check(lib, status, "simplex3_octave_field")
     batched_fractal3_fixed_t.launches += 1
     return out

@@ -9,7 +9,8 @@ PyTorch built for CUDA.  Phases, each of which fails the run when it fails:
 1. the card's name, power limit (`nvidia-smi`) and TF32 flags;
 2. build every kernel of the detection path from `anoddpm_torch/csrc/`;
 3. kernel K1 (simplex octave field) against its plain PyTorch version at the
-   main path's shape: 4 fields of 256^2, 6 octaves, per-field t;
+   main path's shape: 4 fields of 256^2, 6 octaves, per-field t; and its
+   registers, spills and resident blocks as built;
 4. kernel K2 (GroupNorm(32)+SiLU), with its mean and rstd, against its
    plain version at every (C, H, W) that args256syn128's UNet gives it at
    batch 4, in fp32 and bf16, with `F.silu(F.group_norm(...))` timed as the
@@ -45,9 +46,10 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 # that the data sheet's 67 TFLOP/s fp32 = 132 x 128 x 2 FMA x clock assumes):
 # 4 schedulers x 32 lanes issue 128 instructions, the fp32 pipes take 128,
 # the int32 pipes 64, conversions and the MUFU unit 16 (CUDA C++ Programming
-# Guide, arithmetic instruction throughput, compute capability 9.0).
+# Guide, arithmetic instruction throughput, compute capability 9.0); shared
+# memory returns 128 bytes a clock, one word to each of 32 lanes.
 SM_CLOCKS_PER_S = 132 * 1.98e9
-ISSUE_PER_CLOCK = {"all": 128, "int32": 64, "cvt": 16}
+ISSUE_PER_CLOCK = {"all": 128, "int32": 64, "cvt": 16, "lds": 32}
 DEVICE = "cuda"
 CONFIG = "256syn128"
 BATCH = 4                   # slices per volume: the main path's batch
@@ -57,28 +59,39 @@ K1_TOL = 1e-5               # K1 vs plain, per pixel; >= 99.7% must be within
 K2_TOL = 1e-4               # K2 vs plain: atol = rtol (fp32); bf16: 1 ulp
 K2_STATS_TOL = 1e-5         # K2's fp32 mean and rstd vs plain, absolute
 K2_HOST_SHAPE = (4, 512, 8, 8)  # the main path's most frequent K2 shape
-# K1's instructions by class, counted from csrc/simplex3_octave_field.cu for
-# one thread (fp32: each __f*_rn, float compare, select and max; int32:
-# integer multiply, add, logic, shift, compare and select; cvt: floor,
-# float<->int conversion and the MUFU reciprocal of the division):
-# - per pixel and octave: the octave loop (scale, accumulate), the skew and
-#   cell, in-cell and squish terms, region tests and the final division;
-# - per region: the extra-vertex logic (ext_region1/2 in the tetrahedra,
-#   ext_region3 in the octahedron);
-# - per lattice vertex: squish offset, falloff, lattice hash (3 multiplies,
-#   xor, 3 mix rounds, mod 24), gradient selects, dot product, accumulate;
-#   plus one fp32 subtract and one int32 add per nonzero offset of a cube
-#   corner (the zero ones fold away), and runtime offsets for the 2 extra
-#   vertices (3 subtracts, 3 adds, the offset sum and 4 conversions).
-# Corners visited: region 1 (in_sum <= 1) the 4 with offset sum 0 or 1 (3
-# nonzero offsets), region 2 (>= 2) the 4 with sum 2 or 3 (9), the
-# octahedron the 6 with sum 1 or 2 (9).
-K1_PER_PIXEL_OCTAVE = {"fp32": 34, "int32": 5, "cvt": 7}
+# K1's instructions by class for one pixel: the least the function needs in
+# the form the kernel computes it (csrc/simplex3_octave_field.cu), every
+# float operation rounded on its own as the plain version does it, every
+# integer step one instruction where the card has one that does it (IMAD
+# for a multiply-add, LOP3 for a xor of three words, IADD3 for a sum of
+# three).  Classes: fp32: each __f*_rn, float compare, select and max;
+# int32: integer multiply, add, logic, shift, compare and select; cvt:
+# floor and float<->int conversion; lds: a shared-memory load of one word
+# per lane.  Counted:
+# - per pixel and octave: x and y at the octave's scale (z, the scale and
+#   the amplitude are the same for a whole field and not counted), the
+#   skew, cell, in-cell and squish terms, the distances to the far faces
+#   of the cell (dx - 1, ...), the region tests, the division by 103 as a
+#   product by its rounded reciprocal and two corrections, the
+#   accumulation; and the hash products of both faces on each axis,
+#   (xsb + o) * HX ... for o = 0, 1, with the seed folded into z;
+# - per region: the extra-vertex logic of a tetrahedron or of the
+#   octahedron;
+# - per vertex: falloff, lattice hash (xor of its words, 3 mix rounds,
+#   mod 24 and the table address), the gradient as 3 loads from a table,
+#   dot product; per cube corner 3 squish subtracts unless it is (0,0,0);
+#   per extra vertex its runtime offsets (their sum, 3 hash products, 4
+#   conversions, the squish and 6 subtracts);
+# - the sum of the region's vertices, one add fewer than it has.
+# Corners visited: region 1 (in_sum <= 1) the 4 with offset sum 0 or 1,
+# region 2 (>= 2) the 4 with sum 2 or 3, the octahedron the 6 with sum 1
+# or 2.
+K1_PER_PIXEL_OCTAVE = {"fp32": 32, "int32": 8, "cvt": 6}
 K1_PER_REGION = {"tetra": {"fp32": 10, "int32": 17},
                  "octa": {"fp32": 19, "int32": 22}}
-K1_PER_CORNER = {"fp32": 25, "int32": 25}
-K1_PER_EXTRA_VERTEX = {"fp32": 29, "int32": 30, "cvt": 4}
-K1_CORNERS = {"r1": (4, 3), "r2": (4, 9), "octa": (6, 9)}  # (corners, offsets)
+K1_PER_CORNER = {"fp32": 15, "int32": 13, "lds": 3}
+K1_PER_EXTRA_VERTEX = {"fp32": 22, "int32": 18, "cvt": 4, "lds": 3}
+K1_CORNERS = {"r1": (4, 3), "r2": (4, 4), "octa": (6, 6)}  # (all, not (0,0,0))
 
 
 def log(msg):
@@ -171,7 +184,7 @@ def k1_instructions(t, shape_hw, octaves, frequency):
     h, w = shape_hw
     yy = torch.arange(h, dtype=torch.float32, device=t.device).view(1, h, 1)
     xx = torch.arange(w, dtype=torch.float32, device=t.device).view(1, 1, w)
-    count = {"fp32": 0, "int32": 0, "cvt": 0}
+    count = {"fp32": 0, "int32": 0, "cvt": 0, "lds": 0}
     for scale, _ in sx.octave_schedule(octaves, 0.8, frequency):
         x, y, z = torch.broadcast_tensors(xx * scale, yy * scale,
                                           t.view(-1, 1, 1) * scale)
@@ -180,22 +193,21 @@ def k1_instructions(t, shape_hw, octaves, frequency):
                   "r2": (in_sum >= 2.0).sum().item()}
         pixels["octa"] = x.numel() - pixels["r1"] - pixels["r2"]
         for region, n in pixels.items():
-            corners, offsets = K1_CORNERS[region]
+            corners, shifted = K1_CORNERS[region]
             per = K1_PER_REGION["octa" if region == "octa" else "tetra"]
             for k in count:
                 count[k] += n * (K1_PER_PIXEL_OCTAVE.get(k, 0) + per.get(k, 0)
                                  + corners * K1_PER_CORNER.get(k, 0)
                                  + 2 * K1_PER_EXTRA_VERTEX.get(k, 0))
-            count["fp32"] += n * offsets
-            count["int32"] += n * offsets
+            count["fp32"] += n * (3 * shifted + corners + 1)
     return count
 
 
 def issue_bound_ms(count):
     """Least milliseconds to issue these instructions: the larger of all of
     them at the schedulers' rate and each narrow class at its own pipe's."""
-    need = {"all": sum(count.values()), "int32": count["int32"],
-            "cvt": count["cvt"]}
+    need = {"all": sum(count.values()),
+            **{k: count[k] for k in ISSUE_PER_CLOCK if k != "all"}}
     return max(need[k] / (ISSUE_PER_CLOCK[k] * SM_CLOCKS_PER_S)
                for k in need) * 1e3
 
@@ -224,12 +236,17 @@ def check_k1():
     count = k1_instructions(t, hw, octaves, freq)
     bound = max(4 * n * hw[0] * hw[1] / HBM_BYTES_PER_S * 1e3,
                 issue_bound_ms(count))
+    attr = sx.attributes(torch.cuda.current_device())
+    log(f"K1 built: {attr.registers} registers and {attr.local_bytes} local "
+        f"(spill) bytes per thread, {attr.shared_bytes} shared bytes and "
+        f"{attr.threads} threads per block, {attr.blocks_per_sm} blocks "
+        f"resident per SM, {attr.resident} on the card")
     log(f"K1 n={n} {hw[0]}x{hw[1]} oct={octaves}: mismatch fraction "
         f"{1 - within:.3e} (|d|>{K1_TOL}), max|d| {max_err:.3e}, kernel "
         f"{ms:.4f} ms back to back, {device_ms:.4f} ms device-only, plain "
         f"{plain_ms:.3f} ms, bound {bound:.4f} ms (instructions: "
         f"{count['fp32']:.4e} fp32, {count['int32']:.4e} int32, "
-        f"{count['cvt']:.4e} cvt); host {host:.2f} us per call at n={n} "
+        f"{count['cvt']:.4e} cvt, {count['lds']:.4e} lds); host {host:.2f} us per call at n={n} "
         f"16x16; std {got.std().item():.4f}")
     return dict(name="simplex3_octave_field", route="cuda",
                 source="anoddpm_torch/csrc/simplex3_octave_field.cu",

@@ -35,6 +35,73 @@ def test_simplex_kernel_matches_plain(cuda, n, h, w):
     assert ((got - want).abs() <= 1e-5).float().mean().item() >= 0.997
 
 
+def _check_simplex_kernel(seeds, t, hw, octaves=6, frequency=64.0):
+    """One K1 launch against the plain version: within 1e-5 on >= 99.7% of
+    the pixels (a floor() may flip at an exact cell boundary), all finite."""
+    before = sx.batched_fractal3_fixed_t.launches
+    got = sx.batched_fractal3_fixed_t(seeds, t, hw, octaves, 0.8, frequency)
+    assert sx.batched_fractal3_fixed_t.launches == before + 1
+    want = sx._fractal3_fixed_t_plain(seeds, t, hw, octaves, 0.8, frequency)
+    assert got.shape == (seeds.shape[0], *hw) and torch.isfinite(got).all()
+    assert ((got - want).abs() <= 1e-5).float().mean().item() >= 0.997
+    return got
+
+
+@pytest.mark.parametrize("n,h,w,octaves,frequency,t_value", [
+    (1, 64, 64, 6, 64.0, None),        # one field
+    (2, 1, 1, 6, 64.0, None),          # one pixel
+    (2, 255, 257, 6, 64.0, None),      # ragged in both axes
+    (64, 32, 32, 6, 64.0, None),       # many fields
+    (4, 64, 64, 1, 64.0, None),        # one octave
+    (4, 64, 64, 8, 64.0, None),        # eight octaves
+    (4, 64, 64, 6, 16.0, None),        # mixed warps from octave 0
+    (4, 64, 64, 6, 64.0, 999.0),       # the last timestep
+])
+def test_simplex_kernel_shapes(cuda, n, h, w, octaves, frequency, t_value):
+    gen = torch.Generator(device=cuda).manual_seed(n * 1000 + h + w)
+    seeds = torch.randint(0, 1 << 32, (n,), generator=gen, device=cuda,
+                          dtype=torch.int64)
+    t = (torch.full((n,), t_value, device=cuda) if t_value is not None
+         else torch.rand(n, generator=gen, device=cuda) * 999)
+    _check_simplex_kernel(seeds, t, (h, w), octaves, frequency)
+
+
+def test_simplex_kernel_share_batch(cuda):
+    """The sampler with share_batch: one K1 launch for the C fields, each
+    repeated over the batch, equal to the plain fields of the same seeds."""
+    from anoddpm_torch.ops import noise
+    before = sx.batched_fractal3_fixed_t.launches
+    got = noise.simplex_noise((3, 2, 40, 48), torch.tensor([7, 9, 11]),
+                              torch.Generator(device=cuda).manual_seed(5),
+                              share_batch=True)
+    assert sx.batched_fractal3_fixed_t.launches == before + 1
+    seeds = noise._seeds(2, torch.Generator(device=cuda).manual_seed(5))
+    want = sx._fractal3_fixed_t_plain(seeds, torch.full((2,), 7.0, device=cuda),
+                                      (40, 48), 6, 0.8, 64.0)
+    assert got.shape == (3, 2, 40, 48)
+    for b in range(3):
+        assert ((got[b] - want).abs() <= 1e-5).float().mean().item() >= 0.997
+
+
+def test_simplex_kernel_attributes(cuda):
+    """As built: no spills, and the card holds its blocks."""
+    attr = sx.attributes(torch.cuda.current_device())
+    assert attr.local_bytes == 0 and attr.blocks_per_sm >= 1
+    assert attr.resident == attr.blocks_per_sm * torch.cuda.get_device_properties(
+        0).multi_processor_count
+
+
+def test_simplex_kernel_takes_other_dtypes_and_strides(cuda):
+    """int32 seeds and a strided fp64 t are converted, not refused."""
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    seeds = torch.randint(0, 1 << 31, (3,), generator=gen, device=cuda,
+                          dtype=torch.int64)
+    t = torch.rand(6, generator=gen, device=cuda, dtype=torch.float64)[::2] * 99
+    got = sx.batched_fractal3_fixed_t(seeds.int(), t, (33, 20))
+    want = _check_simplex_kernel(seeds, t.float(), (33, 20))
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+
+
 def _check_group_norm_silu(x, gamma, beta):
     """One K2 call against the plain version: output within atol = rtol =
     1e-4 (fp32) or one bf16 ulp (1e-4 floor), mean and rstd within 1e-5."""
