@@ -8,11 +8,17 @@ is a walk over the nested dict of numpy arrays:
 - `GroupNorm_0/{scale, bias}` become the norm's `weight` / `bias`;
 - the fused-norm names `{name}_pscale` / `{name}_pbias`
   (`pallas_norm: true` in the JAX package) map onto the same norm weights.
+
+The optimizer state carried across: the optax chain of the JAX trainer
+(clip_by_global_norm, then adamw) keeps Adam's `count`, `mu` and `nu`,
+the last two trees shaped like the parameters.  `adamw_state_from_optax`
+converts them by the same walk into `torch.optim.AdamW`'s per-parameter
+`step`, `exp_avg` and `exp_avg_sq`, keyed by parameter name.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
@@ -52,3 +58,35 @@ def unet_state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
             raise KeyError(f"two flax parameters map onto {key}")
         out[key] = torch.from_numpy(np.array(value, np.float32))
     return out
+
+
+def _find_adam_state(tree: Any):
+    """The {"count", "mu", "nu"} node of an optax state tree, or None."""
+    if not isinstance(tree, Mapping):
+        return None
+    if {"count", "mu", "nu"} <= set(tree):
+        return tree
+    for value in tree.values():
+        found = _find_adam_state(value)
+        if found is not None:
+            return found
+    return None
+
+
+def is_optax_state(tree: Any) -> bool:
+    return _find_adam_state(tree) is not None
+
+
+def adamw_state_from_optax(opt_state: Mapping) -> Dict[str, Dict[str, torch.Tensor]]:
+    """AdamW state by parameter name, {name: {"step", "exp_avg",
+    "exp_avg_sq"}}, from the optax chain state of the JAX trainer as a
+    nested dict (`flax.serialization.to_state_dict`, or a checkpoint's
+    "opt" read with plain msgpack)."""
+    adam = _find_adam_state(opt_state)
+    if adam is None:
+        raise KeyError("no optax Adam state (count, mu, nu) in the tree")
+    step = torch.tensor(float(np.asarray(adam["count"])), dtype=torch.float32)
+    exp_avg = unet_state_dict_from_flax(adam["mu"])
+    exp_avg_sq = unet_state_dict_from_flax(adam["nu"])
+    return {name: {"step": step.clone(), "exp_avg": exp_avg[name],
+                   "exp_avg_sq": exp_avg_sq[name]} for name in exp_avg}

@@ -1,10 +1,12 @@
-"""Synthetic MRI-like phantoms with lesions and ground-truth masks.
+"""Synthetic MRI-like phantoms, healthy or with lesions and ground-truth
+masks.
 
-Own copy of the anomalous half of `anoddpm_tpu/data/synthetic.py` (numpy
-only): smooth elliptical "brain" phantoms with low-frequency texture, each
-with a localised lesion ("bump") or a diffuse, intensity-matched,
-irregular one ("diffuse"), plus its mask.  Samples are deterministic per
-index, so the port and the JAX package see the same volumes.
+Own copy of `anoddpm_tpu/data/synthetic.py` (numpy only): smooth
+elliptical "brain" phantoms with low-frequency texture; the training set
+is healthy, the anomalous set carries a localised lesion ("bump") or a
+diffuse, intensity-matched, irregular one ("diffuse"), plus its mask.
+Samples are deterministic per index, so the port and the JAX package see
+the same images.
 """
 
 from __future__ import annotations
@@ -104,6 +106,30 @@ def _diffuse_lesion(rng: np.random.Generator, size: Tuple[int, int],
     strength = rng.uniform(s_lo, max(s_hi, s_lo + 0.01))
     lesioned = img + strength * falloff * (target + tex - img)
     return np.clip(lesioned, 0.0, 1.0).astype(np.float32), mask
+
+
+class SyntheticMRIDataset:
+    """Healthy phantoms; sample contract of MRIDataset (dataset.py:575-643):
+    {"image": HxWx1 float32 in [-1,1], "filenames": str}."""
+
+    def __init__(self, img_size=(64, 64), length: int = 100, seed: int = 0):
+        self.img_size = tuple(img_size)
+        self.length = length
+        self.seed = seed
+        # samples are deterministic per index, so they are cached: phantom
+        # synthesis is host work that would otherwise repeat every epoch
+        self._cache = {}
+
+    def __len__(self):
+        return self.length
+
+    def __getitem__(self, idx):
+        if idx not in self._cache:
+            rng = np.random.default_rng(self.seed * 100003 + idx)
+            img = (_phantom(rng, self.img_size) - 0.5) / 0.5
+            self._cache[idx] = {"image": img[..., None].astype(np.float32),
+                                "filenames": f"synthetic-{idx:05d}"}
+        return self._cache[idx]
 
 
 class SyntheticAnomalyDataset:

@@ -1,10 +1,12 @@
-"""Per-slice anomaly-segmentation metrics over (S, H, W, C) numpy stacks.
+"""Per-slice anomaly-segmentation metrics over (S, H, W, C) numpy stacks,
+and the PSNR of the test-set suite.
 
-Own copy of what `anoddpm_tpu/metrics.py:batched_anomaly_metrics` needs:
-AUC on the raw square-error map (rank-sum identity, equal to the trapezoidal
-ROC integral), SSIM with skimage's default algorithm (7x7 uniform window,
-K1=.01, K2=.03, data range 2, border crop), and the thresholded metrics at
-0.5, keeping the reference's swapped recall/FPR conventions.
+Own copy of what `anoddpm_tpu/metrics.py:batched_anomaly_metrics` and
+`psnr` need: AUC on the raw square-error map (rank-sum identity, equal to
+the trapezoidal ROC integral), SSIM with skimage's default algorithm (7x7
+uniform window, K1=.01, K2=.03, data range 2, border crop), and the
+thresholded metrics at 0.5, keeping the reference's swapped recall/FPR
+conventions.
 """
 
 from __future__ import annotations
@@ -12,6 +14,14 @@ from __future__ import annotations
 import numpy as np
 from scipy.ndimage import uniform_filter
 from scipy.stats import rankdata
+
+
+def psnr(recon, real) -> float:
+    """PSNR with the reference's max(real) peak convention."""
+    real = np.asarray(real, np.float64)
+    recon = np.asarray(recon, np.float64)
+    mse = np.mean((real - recon) ** 2)
+    return float(20 * np.log10(real.max() / np.sqrt(mse)))
 
 
 def batched_roc_auc(labels: np.ndarray, scores: np.ndarray) -> np.ndarray:

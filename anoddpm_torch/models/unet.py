@@ -14,7 +14,8 @@ Precision mirrors flax's `dtype`: parameters are fp32; every conv and dense
 casts its input and weight to the compute dtype; norms compute their
 statistics in fp32 and return the activation dtype; `out_norm` and
 `out_conv` run in fp32.  Every norm+SiLU site calls kernel K2
-(`ops.group_norm_silu`) at every shape; the attention norm (GroupNorm
+(`ops.group_norm_silu`) at every shape, and under autograd its gradient
+is kernel K2b; the attention norm (GroupNorm
 without SiLU, outside any kernel in the JAX package) is `F.group_norm` in
 fp32.  The JAX package's `bf16_norm` and `pallas_norm` keys change only how
 flax computes the same norms, so the port reads neither.

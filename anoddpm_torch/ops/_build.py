@@ -21,7 +21,8 @@ CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
-SOURCES = ("simplex3_octave_field", "group_norm_silu")
+SOURCES = ("simplex3_octave_field", "group_norm_silu",
+           "group_norm_silu_backward")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 

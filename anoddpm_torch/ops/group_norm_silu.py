@@ -7,8 +7,15 @@ silu(x * rstd * gamma + (beta - mean * rstd * gamma)) in x's dtype.
 For NCHW-contiguous x on the card, `group_norm_silu` launches the CUDA
 kernel `csrc/group_norm_silu.cu` once, at every shape (the TPU kernel's
 VMEM eligibility gate has no counterpart here), with the layout that `plan`
-picks.  For x on the CPU it computes the plain PyTorch version below.  The
-backward belongs to the training slice.
+picks.  For x on the CPU it computes the plain PyTorch version below.
+
+Under autograd (grad enabled and x, gamma or beta requiring grad) the call
+goes through `GroupNormSiLU`, the counterpart of the JAX custom_vjp: its
+forward is K2 with the statistics and keeps x, mean and rstd (never the
+output); its backward is kernel K2b (`csrc/group_norm_silu_backward.cu`,
+`group_norm_silu_backward`) on the card and `_plain_backward`, the closed
+form of `pallas_norm._bwd`, on the CPU.  Without autograd the call stays
+one K2 launch without statistics.
 """
 
 from __future__ import annotations
@@ -76,21 +83,56 @@ def plan(n: int, c: int, hw: int, dtype: torch.dtype) -> Plan:
     return Plan(cluster, slice_len, threads, slice_len * size if staged else 0)
 
 
+def _acc_dtype(x: torch.Tensor) -> torch.dtype:
+    """fp32 for fp32 and narrower x, float64 for float64 (gradcheck)."""
+    return torch.promote_types(x.dtype, torch.float32)
+
+
 def _plain(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
            eps: float):
     """Plain PyTorch version of kernel K2: (out, mean, rstd)."""
     n, c = x.shape[:2]
     cg = c // GROUPS
-    xf = x.float()
+    acc = _acc_dtype(x)
+    xf = x.to(acc)
     xg = xf.reshape(n, GROUPS, -1)
     mean = xg.mean(dim=-1)
     var = torch.clamp((xg * xg).mean(dim=-1) - mean * mean, min=0.0)
     rstd = torch.rsqrt(var + eps)
-    scale = rstd.repeat_interleave(cg, dim=1) * gamma.float()          # (n, c)
-    shift = beta.float() - mean.repeat_interleave(cg, dim=1) * scale
+    scale = rstd.repeat_interleave(cg, dim=1) * gamma.to(acc)          # (n, c)
+    shift = beta.to(acc) - mean.repeat_interleave(cg, dim=1) * scale
     bshape = (n, c) + (1,) * (x.dim() - 2)
     y = xf * scale.view(bshape) + shift.view(bshape)
     return (y * torch.sigmoid(y)).to(x.dtype), mean, rstd
+
+
+def _plain_backward(x: torch.Tensor, grad_out: torch.Tensor,
+                    gamma: torch.Tensor, beta: torch.Tensor,
+                    mean: torch.Tensor, rstd: torch.Tensor):
+    """Plain PyTorch version of kernel K2b, the closed form of
+    `pallas_norm._bwd` in NCHW: (dx in x's dtype, dgamma, dbeta in fp32)."""
+    n, c = x.shape[:2]
+    cg = c // GROUPS
+    acc = _acc_dtype(x)
+    bshape = (n, c) + (1,) * (x.dim() - 2)
+    cshape = (1, c) + (1,) * (x.dim() - 2)
+    mean_c = mean.to(acc).repeat_interleave(cg, dim=1).view(bshape)
+    rstd_c = rstd.to(acc).repeat_interleave(cg, dim=1).view(bshape)
+    g = gamma.to(acc).view(cshape)
+    xhat = (x.to(acc) - mean_c) * rstd_c
+    z = xhat * g + beta.to(acc).view(cshape)
+    sig = torch.sigmoid(z)
+    dz = grad_out.to(acc) * sig * (1.0 + z * (1.0 - sig))
+    dims = (0,) + tuple(range(2, x.dim()))
+    dgamma = (dz * xhat).sum(dim=dims)
+    dbeta = dz.sum(dim=dims)
+    dxhat = dz * g
+    m1 = dxhat.reshape(n, GROUPS, -1).mean(dim=-1)
+    m2 = (dxhat * xhat).reshape(n, GROUPS, -1).mean(dim=-1)
+    m1 = m1.repeat_interleave(cg, dim=1).view(bshape)
+    m2 = m2.repeat_interleave(cg, dim=1).view(bshape)
+    dx = (dxhat - m1 - xhat * m2) * rstd_c
+    return dx.to(x.dtype), dgamma, dbeta
 
 
 @functools.cache
@@ -182,11 +224,120 @@ def group_norm_silu_with_stats(x: torch.Tensor, gamma: torch.Tensor,
     return out, stats[0], stats[1]
 
 
+class BackwardPlan(NamedTuple):
+    """How K2b covers x: each (n, c) plane is cut into `chunks` chunks of
+    `chunk_len` elements (a multiple of 32 16-byte vectors); one warp owns
+    one (plane, chunk) unit in each of the kernel's two launches."""
+    chunk_len: int
+    chunks: int
+
+
+BACKWARD_LAUNCHES = 2       # K2b's CUDA launches per call: reduce, apply
+BACKWARD_VECTORS = 16       # 16-byte vectors per lane in a full chunk
+BACKWARD_WARPS = 8          # units per block (csrc: WARPS)
+
+
+@functools.lru_cache(maxsize=None)
+def backward_plan(n: int, c: int, hw: int, dtype: torch.dtype) -> BackwardPlan:
+    """K2b's chunking for an (n, c, H W) x of `dtype`; raises on what the
+    kernel does not take."""
+    plan(n, c, hw, dtype)                    # the same shape and type limits
+    width = 16 // (torch.finfo(dtype).bits // 8)
+    step = 32 * width                        # one vector per lane
+    cdiv = lambda a, b: -(-a // b)
+    chunks = cdiv(hw, step * BACKWARD_VECTORS)
+    chunk_len = cdiv(cdiv(hw, chunks), step) * step
+    chunks = cdiv(hw, chunk_len)             # no chunk without elements
+    if cdiv(n * c * chunks, BACKWARD_WARPS) >= 2 ** 31:
+        raise ValueError(f"group_norm_silu_backward: N = {n} exceeds the grid")
+    return BackwardPlan(chunk_len, chunks)
+
+
+@functools.cache
+def _backward_kernel():
+    """The built K2b library and its C entry, with argument types declared."""
+    lib = _build.load("group_norm_silu_backward")
+    fn = lib.group_norm_silu_backward
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib, fn
+
+
+def group_norm_silu_backward(x: torch.Tensor, grad_out: torch.Tensor,
+                             gamma: torch.Tensor, beta: torch.Tensor,
+                             mean: torch.Tensor, rstd: torch.Tensor):
+    """The gradient of `group_norm_silu` at x for the output gradient
+    `grad_out`, from the forward's (N, 32) mean and rstd: (dx in x's dtype,
+    dgamma, dbeta in fp32).  Kernel K2b for x on the card (NCHW-contiguous
+    x and grad_out of x's dtype), the plain version for x on the CPU."""
+    _check(x, gamma, beta)
+    if x.is_cpu:
+        return _plain_backward(x, grad_out, gamma, beta, mean, rstd)
+    if not x.is_cuda:
+        raise ValueError(f"group_norm_silu_backward: unsupported device "
+                         f"{x.device}")
+    if grad_out.shape != x.shape or grad_out.dtype != x.dtype \
+            or grad_out.device != x.device:
+        raise ValueError("group_norm_silu_backward: grad_out must match x in "
+                         "shape, dtype and device")
+    if not (x.is_contiguous() and grad_out.is_contiguous()):
+        raise ValueError("group_norm_silu_backward: x and grad_out must be "
+                         "NCHW-contiguous")
+    n, c = x.shape[:2]
+    if mean.shape != (n, GROUPS) or rstd.shape != (n, GROUPS):
+        raise ValueError(f"mean and rstd must be ({n}, {GROUPS})")
+    hw = math.prod(x.shape[2:])
+    p = backward_plan(n, c, hw, x.dtype)
+    device = x.get_device()
+    gamma, beta = _fp32_on(gamma, device), _fp32_on(beta, device)
+    mean, rstd = _fp32_on(mean, device), _fp32_on(rstd, device)
+    part = x.new_empty((2, n * c * p.chunks), dtype=torch.float32)
+    dx = torch.empty_like(x)
+    dgb = x.new_empty((2, c), dtype=torch.float32)
+    lib, fn = _backward_kernel()
+    status = fn(x.data_ptr(), grad_out.data_ptr(), gamma.data_ptr(),
+                beta.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
+                part.data_ptr(), dx.data_ptr(), dgb[0].data_ptr(),
+                dgb[1].data_ptr(), n, c, hw, p.chunk_len, p.chunks,
+                _DTYPE_CODES[x.dtype], torch._C._cuda_getCurrentRawStream(device))
+    _build.check(lib, status, "group_norm_silu_backward")
+    group_norm_silu_backward.launches += BACKWARD_LAUNCHES
+    return dx, dgb[0], dgb[1]
+
+
+group_norm_silu_backward.launches = 0
+
+
+class GroupNormSiLU(torch.autograd.Function):
+    """`group_norm_silu` under autograd (the JAX custom_vjp `_fwd`/`_bwd`):
+    the forward keeps x, gamma, beta, mean and rstd; the backward is K2b."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, eps):
+        out, mean, rstd = group_norm_silu_with_stats(x, gamma, beta, eps)
+        ctx.save_for_backward(x, gamma, beta, mean, rstd)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        x, gamma, beta, mean, rstd = ctx.saved_tensors
+        dx, dgamma, dbeta = group_norm_silu_backward(
+            x, grad_out.contiguous(), gamma, beta, mean, rstd)
+        need = ctx.needs_input_grad
+        return (dx if need[0] else None,
+                dgamma.to(gamma.dtype) if need[1] else None,
+                dbeta.to(beta.dtype) if need[2] else None, None)
+
+
 def group_norm_silu(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                     eps: float = 1e-5) -> torch.Tensor:
     """silu(group_norm_32(x) * gamma + beta) for NCHW x (fp32 or bf16), with
-    fp32 statistics and the output in x's dtype."""
+    fp32 statistics and the output in x's dtype.  Differentiable: under
+    autograd it goes through `GroupNormSiLU`."""
     _check(x, gamma, beta)
+    if torch.is_grad_enabled() and (x.requires_grad or gamma.requires_grad
+                                    or beta.requires_grad):
+        return GroupNormSiLU.apply(x, gamma, beta, eps)
     if x.is_cpu:
         return _plain(x, gamma, beta, eps)[0]
     return _forward(x, gamma, beta, eps, False)[0]

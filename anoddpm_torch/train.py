@@ -1,0 +1,202 @@
+"""Training entry point:
+``python -m anoddpm_torch.train [RESUME_RECENT|RESUME_FINAL] <ARG_NUM>``.
+
+Counterpart of `anoddpm_tpu/train.py:40-259`: the positional argument
+selects ``configs/args{N}.json``; the loop keeps the reference recipe
+(100 images an epoch unless `iters_per_epoch`, AdamW after a global-norm
+clip of 1.0, EMA 0.9999, t < min(sample_distance, T) with train_start,
+the metrics JSONL every 10 epochs, the VLB sweep printed every 200,
+checkpoints every `checkpoint_every` epochs, then the final save, the
+purge of the periodic checkpoints and the test-set suite).  Batches reach
+the card through a pinned-memory prefetch thread.  It runs on the card
+unless `device="cpu"`, and raises without one.
+"""
+
+from __future__ import annotations
+
+import sys
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from . import diffusion as dmod
+from . import evaluation as ev
+from .checkpoint import load_checkpoint, purge_checkpoints, save_checkpoint
+from .config import load_args, resolve_in_channels
+from .data.datasets import dataset_from_args
+from .data.pipeline import batch_iterator, prefetch_to_device
+from .device import DeviceLike, resolve_device
+from .models.unet import unet_from_args
+from .observe import MetricsLogger, ProfileWindow, StepTimer
+from .ops.noise import sampler_from_args
+from .schedule import schedule_from_args
+from .training import (TrainState, init_train_state, load_optimizer_state,
+                       make_optimizer, make_train_step, optimizer_state)
+
+_USAGE = ("usage: python -m anoddpm_torch.train [RESUME_RECENT|RESUME_FINAL] "
+          "<ARG_NUM>")
+
+
+def _refuse_unported(args) -> None:
+    later = "is not ported yet (ROADMAP.md, Queue 1: {})"
+    if args.get("save_imgs"):
+        raise NotImplementedError("save_imgs " + later.format(
+            "tail, training snapshots with visualize and figures"))
+    if args.get("save_vids"):
+        raise NotImplementedError("save_vids " + later.format(
+            "tail, videos with visualize and figures"))
+    if int(args.get("train_substeps") or 1) > 1:
+        raise NotImplementedError("train_substeps > 1 " + later.format(
+            "training, rest"))
+
+
+def new_train_state(args, device: torch.device) -> TrainState:
+    """A fresh run's state on `device`: the UNet initialised on the CPU from
+    args' seed (the same weights on every device), its EMA copy, and the
+    clipped AdamW of args."""
+    seed = int(args.get("seed", 0) or 0)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        model = unet_from_args(args, resolve_in_channels(args))
+    model = model.to(device)
+    optimizer = make_optimizer(model.parameters(), float(args["lr"]),
+                               float(args.get("weight_decay", 0) or 0),
+                               float(args.get("grad_clip_norm", 1.0) or 1.0))
+    return init_train_state(model, optimizer)
+
+
+def restore_train_state(state: TrainState, root_dir: str, args,
+                        resume: str) -> int:
+    """Load model, EMA and AdamW state from params-final (RESUME_FINAL) or
+    the newest periodic checkpoint (RESUME_RECENT), written by the port or
+    by the JAX package; returns the checkpoint's epoch.  The step counter
+    restarts at 0, as in the JAX trainer."""
+    payload, meta = load_checkpoint(root_dir, args["arg_num"],
+                                    use_checkpoint=resume == "RESUME_RECENT")
+    if not payload["opt"]:
+        raise ValueError("the checkpoint holds no optimizer state to resume")
+    state.model.load_state_dict(payload["model"])
+    state.ema.load_state_dict(payload["ema"])
+    load_optimizer_state(state, payload["opt"])
+    return int(meta["n_epoch"])
+
+
+def train(args, root_dir: str = ".", resume: Optional[str] = None,
+          max_epochs: Optional[int] = None,
+          device: DeviceLike = None) -> TrainState:
+    device = resolve_device(device)
+    _refuse_unported(args)
+    sched = schedule_from_args(args).to(device)
+    noise_sampler = sampler_from_args(args)
+    state = new_train_state(args, device)
+    start_epoch = 0
+    if resume:
+        start_epoch = restore_train_state(state, root_dir, args, resume)
+        print(f"resumed from epoch {start_epoch}")
+
+    # never train on t >= lambda_max with train_start
+    if args.get("train_start"):
+        max_t = min(int(args["sample_distance"]), sched.num_timesteps)
+    else:
+        max_t = sched.num_timesteps
+    train_step = make_train_step(
+        sched, noise_sampler, loss_type=str(args.get("loss-type") or "l2"),
+        max_t=max_t, ema_decay=float(args.get("ema_decay", 0.9999) or 0.9999),
+        loss_weight=str(args.get("loss_weight") or "none"),
+        dropout=float(args.get("dropout", 0) or 0) > 0)
+
+    batch_size = int(args["Batch_Size"])
+    dataset = dataset_from_args(root_dir, args, train=True)
+    test_dataset = dataset_from_args(root_dir, args, train=False)
+    loader = prefetch_to_device(batch_iterator(dataset, batch_size,
+                                               shuffle=True), device)
+    test_loader = batch_iterator(test_dataset, batch_size, shuffle=True, seed=1)
+
+    is_cifar = str(args.get("dataset", "")).lower() == "cifar"
+    iters_per_epoch = int(args.get("iters_per_epoch") or
+                          (200 if is_cifar else max(100 // batch_size, 1)))
+    epochs = int(args["EPOCHS"]) if max_epochs is None else max_epochs
+    checkpoint_every = int(args.get("checkpoint_every", 1000) or 1000)
+    generator = torch.Generator(device=device).manual_seed(
+        int(args.get("seed", 0) or 0))
+
+    start_time = time.time()
+    losses, vlb_log = [], []
+    mlog = MetricsLogger(f"{root_dir}/metrics/args{args['arg_num']}-train.jsonl")
+    timer = StepTimer()
+    prof = ProfileWindow(f"train-args{args['arg_num']}")
+    try:
+        for epoch in range(start_epoch, epochs + 1):
+            prof.start_epoch(epoch - start_epoch)
+            epoch_losses = []
+            for _ in range(iters_per_epoch):
+                x = next(loader)["image"]
+                metrics = train_step(state, x, generator)
+                timer.tick()
+                epoch_losses.append(metrics["loss"])
+            prof.end_epoch(epoch - start_epoch)
+            losses.append(float(torch.stack(epoch_losses).mean()))
+            if epoch % 10 == 0:
+                mlog.log(state.step, epoch=epoch, loss=losses[-1],
+                         grad_norm=metrics["grad_norm"],
+                         imgs_per_sec=(batch_size / timer.mean
+                                       if timer.mean == timer.mean else 0.0))
+
+            if epoch % 200 == 0:
+                sweep_start = time.time()
+                state.model.eval()
+                with torch.inference_mode():
+                    vlb_terms = dmod.calc_total_vlb(state.model, sched, x,
+                                                    generator)
+                vlb_log.append(float(vlb_terms["total_vlb"].mean()))
+                sweep_s = time.time() - sweep_start
+                elapsed = time.time() - start_time
+                eta = (epochs - epoch) * (elapsed / (epoch + 1 - start_epoch))
+                print(f"epoch: {epoch}, loss: {losses[-1]:.5f}, "
+                      f"total VLB: {vlb_log[-1]:.4f} "
+                      f"(mean of last 10: {np.mean(vlb_log[-10:]):.4f}), "
+                      f"prior vlb: {float(vlb_terms['prior_vlb'].mean()):.2f}, "
+                      f"vb: {float(vlb_terms['vb'].mean()):.3f}, "
+                      f"x_0_mse: {float(vlb_terms['x_0_mse'].mean()):.3f}, "
+                      f"mse: {float(vlb_terms['mse'].mean()):.3f}, "
+                      f"VLB sweep {sweep_s:.2f} s, "
+                      f"elapsed {elapsed:.0f}s, eta {eta:.0f}s", flush=True)
+
+            if epoch % checkpoint_every == 0 and epoch > start_epoch:
+                save_checkpoint(root_dir, args, epoch, state.model.state_dict(),
+                                state.ema.state_dict(), optimizer_state(state),
+                                loss=losses[-1])
+    finally:
+        # the profiler is process-wide: always close the trace, the log and
+        # the prefetch thread, even when the epoch loop unwinds on an error
+        prof.stop()
+        mlog.close()
+        loader.close()
+    save_checkpoint(root_dir, args, epochs, state.model.state_dict(),
+                    state.ema.state_dict(), optimizer_state(state), final=True)
+    purge_checkpoints(root_dir, args["arg_num"])
+
+    if not args.get("skip_test_eval"):
+        ev.testing(test_loader, state.ema, sched, args,
+                   noise_sampler=noise_sampler, root_dir=root_dir)
+    return state
+
+
+def main(argv=None):
+    argv = list(sys.argv[1:] if argv is None else argv)
+    resume = None
+    for flag in ("RESUME_RECENT", "RESUME_FINAL"):
+        if flag in argv:
+            resume = flag
+            argv.remove(flag)
+    if not argv:
+        raise SystemExit(_USAGE)
+    args = load_args(argv[0])
+    print(f"args{args['arg_num']}: {dict(args)}")
+    train(args, resume=resume)
+
+
+if __name__ == "__main__":
+    main()

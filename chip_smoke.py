@@ -18,21 +18,39 @@ PyTorch built for CUDA.  Phases, each of which fails the run when it fails:
    each kernel's time back to back (host gaps included), its device-only
    time (calls captured in a CUDA graph and replayed) and its host
    microseconds per call at a small shape;
-5. a small fp32 UNet chain on the card against the same chain on the CPU
+5. kernel K2b (K2's gradient) against its plain version at every (C, H, W)
+   of those sites at the training batch of 8, in fp32 and bf16, twice
+   (the two runs must agree bit for bit), with the autograd backward of
+   `F.silu(F.group_norm(x.float(), ...))` timed as the library yardstick;
+6. a small fp32 UNet chain on the card against the same chain on the CPU
    (plain versions), with one injected noise bank;
-6. the main path: args256syn128 at full width (256^2, base 128, lambda 200
-   DDPM, simplex noise) with seeded random weights, saved as a checkpoint
-   and run through `detect.anomalous_metric_calculation` on 2 synthetic
-   volumes, with the kernels' launch counts read around that call.
+7. a small fp32 train step on the card against the same step on the CPU
+   (injected t and noise, TF32 off), then `train.train` at that size on
+   the card, through the test-set suite;
+8. the detection path: args256syn128 at full width (256^2, base 128,
+   lambda 200 DDPM, simplex noise) with seeded random weights, saved as a
+   checkpoint and run through `detect.anomalous_metric_calculation` on 2
+   synthetic volumes, with the kernels' launch counts read around that
+   call;
+9. the training path: `train.train` on args256syn128 at full width (batch
+   8, bf16, simplex noise) from seeded weights, with only EPOCHS,
+   iters_per_epoch and checkpoint_every cut: 12 steps through the epoch-0
+   VLB sweep, the periodic checkpoint and the final one, then a resume
+   with RESUME_RECENT for one more epoch; the launch counts are read
+   around each call, the restored AdamW state is compared with the saved
+   one, and a steady window of train steps is timed.
 
 The line before the last is the JSON kernel table; the last line is
 {"ok": true, "device": {...}}.  Exits non-zero on any failure, and when
 CUDA is unavailable.
 """
 
+import contextlib
+import io
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -59,6 +77,13 @@ K1_TOL = 1e-5               # K1 vs plain, per pixel; >= 99.7% must be within
 K2_TOL = 1e-4               # K2 vs plain: atol = rtol (fp32); bf16: 1 ulp
 K2_STATS_TOL = 1e-5         # K2's fp32 mean and rstd vs plain, absolute
 K2_HOST_SHAPE = (4, 512, 8, 8)  # the main path's most frequent K2 shape
+TRAIN_BATCH = 8             # args256syn128's Batch_Size
+K2B_TOL = 1e-4              # K2b vs plain: dx atol = rtol (fp32), bf16 1 ulp;
+                            # dgamma, dbeta within 1e-4 of their max |value|
+K2B_HOST_SHAPE = (8, 512, 8, 8)
+SMALL_TRAIN_TOL = 1e-4      # small fp32 train step, card vs CPU
+TRAIN_CUTS = {"EPOCHS": 2, "iters_per_epoch": 4, "checkpoint_every": 2}
+STEADY_STEPS = 10           # timed train steps at full width
 # K1's instructions by class for one pixel: the least the function needs in
 # the form the kernel computes it (csrc/simplex3_octave_field.cu), every
 # float operation rounded on its own as the plain version does it, every
@@ -153,6 +178,24 @@ def host_us(fn, calls=1000):
     per_call = (time.perf_counter() - t0) / calls * 1e6
     torch.cuda.synchronize()
     return per_call
+
+
+def profiled_device_ms(fn, reps=10):
+    """Device milliseconds per fn() from `torch.profiler`: the sum of the
+    CUDA kernels' own time over `reps` calls (for calls that a CUDA graph
+    cannot capture, such as an autograd backward)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA)
+    require(total > 0, "the profiler saw no device time")
+    return total / 1e3 / reps
 
 
 def device_info():
@@ -335,7 +378,8 @@ def check_k2(sites):
                 replaces="anoddpm_tpu/ops/pallas_norm.py:63",
                 max_abs_err=max_err, ms=total[0], device_ms=total[1],
                 host_us_per_call=host, plain_ms=total[2], bound_ms=total[5],
-                bound_by="bytes", library_ms=total[3])
+                bound_by="bytes", library_ms=total[3],
+                library_device_ms=total[4])
 
 
 def k2_host_us():
@@ -351,22 +395,100 @@ def k2_host_us():
             host_us(lambda: F.silu(F.group_norm(x, 32, g_, b_))))
 
 
+def check_k2b(sites):
+    """K2b against `_plain_backward` at every (C, H, W) of the K2 sites at
+    the training batch, fp32 and bf16; per train step (85 sites at their
+    own dtype) its time back to back and device-only, the plain version's,
+    the library backward's, and the bytes bound."""
+    import torch.nn.functional as F
+    from anoddpm_torch.ops import group_norm_silu as gn
+    gen = torch.Generator(device=DEVICE).manual_seed(13)
+    timing, max_err = {}, 0.0
+    for chw in sorted({s[1:] for s, _ in sites}, key=lambda s: (s[1], s[0])):
+        shape, c = (TRAIN_BATCH,) + chw, chw[0]
+        x32 = torch.randn(shape, generator=gen, device=DEVICE) * 1.7 + 0.4
+        g32 = torch.randn(shape, generator=gen, device=DEVICE)
+        gamma = 1 + 0.1 * torch.randn(c, generator=gen, device=DEVICE)
+        beta = 0.1 * torch.randn(c, generator=gen, device=DEVICE)
+        for dtype in (torch.float32, torch.bfloat16):
+            x, go = x32.to(dtype), g32.to(dtype)
+            _, mean, rstd = gn.group_norm_silu_with_stats(x, gamma, beta)
+            got = gn.group_norm_silu_backward(x, go, gamma, beta, mean, rstd)
+            again = gn.group_norm_silu_backward(x, go, gamma, beta, mean, rstd)
+            want = gn._plain_backward(x, go, gamma, beta, mean, rstd)
+            torch.cuda.synchronize()
+            require(all(torch.equal(a, b) for a, b in zip(got, again)),
+                    f"K2b {shape} {dtype}: two runs differ")
+            dx, wdx = got[0].float(), want[0].float()
+            diff = (dx - wdx).abs()
+            if dtype == torch.float32:
+                ok = (diff <= K2B_TOL + K2B_TOL * wdx.abs()).all().item()
+            else:
+                ok = (diff <= torch.clamp(bf16_ulp(wdx), min=K2B_TOL)).all().item()
+            err = diff.max().item()
+            max_err = max(max_err, err)
+            require(ok, f"K2b {shape} {dtype}: dx max|d| {err:.3e} out of tolerance")
+            rel = max(((g - w).abs().max() / w.abs().max().clamp_min(1e-30)).item()
+                      for g, w in zip(got[1:], want[1:]))
+            require(rel <= K2B_TOL, f"K2b {shape} {dtype}: dgamma/dbeta off by "
+                    f"{rel:.3e} of their largest value")
+            kernel = lambda: gn.group_norm_silu_backward(x, go, gamma, beta,
+                                                         mean, rstd)
+            xl = x.detach().clone().requires_grad_()
+            gl = gamma.clone().requires_grad_()
+            bl = beta.clone().requires_grad_()
+            yl = F.silu(F.group_norm(xl.float(), 32, gl, bl))
+            gof = go.float()
+            library = lambda: torch.autograd.grad(yl, (xl, gl, bl), gof,
+                                                  retain_graph=True)
+            ms, dev_ms = cuda_ms(kernel, 20), graph_ms(kernel)
+            lib_ms, lib_dev_ms = cuda_ms(library, 10), profiled_device_ms(library)
+            plain_ms = cuda_ms(lambda: gn._plain_backward(x, go, gamma, beta,
+                                                          mean, rstd), 3)
+            nbytes = (3 * x.numel() * x.element_size() + 4 * c * 4
+                      + 2 * TRAIN_BATCH * 32 * 4)
+            bound = nbytes / HBM_BYTES_PER_S * 1e3
+            timing[(shape, dtype)] = (ms, dev_ms, plain_ms, lib_ms, lib_dev_ms,
+                                      bound)
+            log(f"K2b {shape} {str(dtype)[6:]} "
+                f"{gn.backward_plan(shape[0], c, chw[1] * chw[2], dtype)}: dx "
+                f"max|d| {err:.3e}, dgamma/dbeta {rel:.2e} of max, bit-identical "
+                f"rerun; kernel {ms:.4f} ms back to back, {dev_ms:.4f} ms "
+                f"device-only; plain {plain_ms:.4f} ms; library {lib_ms:.4f} ms "
+                f"back to back, {lib_dev_ms:.4f} ms device-only; bound {bound:.4f} ms")
+    steps = [((TRAIN_BATCH,) + s[1:], dt) for s, dt in sites]
+    total = [sum(timing[k][i] for k in steps) for i in range(6)]
+    x = torch.randn(K2B_HOST_SHAPE, device=DEVICE).to(torch.bfloat16)
+    gamma = torch.ones(K2B_HOST_SHAPE[1], device=DEVICE)
+    beta = torch.zeros(K2B_HOST_SHAPE[1], device=DEVICE)
+    _, mean, rstd = gn.group_norm_silu_with_stats(x, gamma, beta)
+    host = host_us(lambda: gn.group_norm_silu_backward(x, x, gamma, beta,
+                                                       mean, rstd))
+    log(f"K2b per train step ({len(sites)} calls, {gn.BACKWARD_LAUNCHES} "
+        f"launches each): kernel {total[0]:.3f} ms back to back, {total[1]:.3f} "
+        f"ms device-only; plain {total[2]:.3f} ms; library {total[3]:.3f} ms "
+        f"back to back, {total[4]:.3f} ms device-only; bound {total[5]:.3f} ms; "
+        f"host {host:.2f} us per call at {K2B_HOST_SHAPE} bf16")
+    return dict(name="group_norm_silu_backward", route="cuda",
+                source="anoddpm_torch/csrc/group_norm_silu_backward.cu",
+                replaces="anoddpm_tpu/ops/pallas_norm.py:141",
+                note="K2's gradient: the JAX package computes it in plain XLA "
+                     "(_bwd), it has no Pallas form",
+                max_abs_err=max_err, ms=total[0], device_ms=total[1],
+                host_us_per_call=host, plain_ms=total[2], bound_ms=total[5],
+                bound_by="bytes", library_ms=total[3],
+                library_device_ms=total[4])
+
+
 def check_small_chain():
     """A 32^2 fp32 UNet chain (lambda 10) on the card, through both kernels'
     wrappers, against the same chain on the CPU through the plain versions,
     with one noise bank injected on both sides and TF32 off."""
     import numpy as np
     from anoddpm_torch import detect, schedule
-    from anoddpm_torch.models.unet import NormSiLU, UNet
-    torch.manual_seed(3)
-    cpu = UNet(img_size=32, base_channels=32, channel_mults=(1, 2),
-               attention_resolutions="16")
-    with torch.no_grad():
-        for p in cpu.parameters():
-            p.add_(0.05 * torch.randn_like(p))
-    gpu = UNet(img_size=32, base_channels=32, channel_mults=(1, 2),
-               attention_resolutions="16").to(DEVICE)
-    gpu.load_state_dict(cpu.state_dict())
+    from anoddpm_torch.models.unet import NormSiLU
+    cpu = small_unet()
+    gpu = small_unet().to(DEVICE)
     sched = schedule.make_schedule(schedule.get_beta_schedule(20, "cosine"))
     rng = np.random.default_rng(4)
     images = rng.uniform(-1, 1, (2, 32, 32, 1)).astype(np.float32)
@@ -374,9 +496,7 @@ def check_small_chain():
     bank = torch.from_numpy(rng.normal(size=(20, 2, 1, 32, 32)).astype(np.float32))
     banks = {"cpu": bank, DEVICE: bank.to(DEVICE)}
     sampler = lambda s, t, g: banks[t.device.type][t[0]]
-    flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
-    try:
+    with tf32_off():
         launches = torch_launches()
         out_g, rec_g = detect.evaluate_anomaly_batch(
             gpu.eval(), sched.to(DEVICE), images, masks,
@@ -386,8 +506,6 @@ def check_small_chain():
                 "K2 was not launched on the card path")
         out_c, rec_c = detect.evaluate_anomaly_batch(
             cpu.eval(), sched, images, masks, torch.Generator(), sampler, 10)
-    finally:
-        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
     err = float(np.abs(rec_g - rec_c).max())
     log(f"small chain card vs CPU: max|d recon| {err:.3e}, AUC "
         f"{out_g['auc']} vs {out_c['auc']}")
@@ -398,16 +516,125 @@ def check_small_chain():
 
 
 def torch_launches():
-    from anoddpm_torch.ops.group_norm_silu import group_norm_silu
+    """(K1, K2, K2b) launch counts."""
+    from anoddpm_torch.ops.group_norm_silu import (group_norm_silu,
+                                                   group_norm_silu_backward)
     from anoddpm_torch.ops.simplex import batched_fractal3_fixed_t
-    return batched_fractal3_fixed_t.launches, group_norm_silu.launches
+    return (batched_fractal3_fixed_t.launches, group_norm_silu.launches,
+            group_norm_silu_backward.launches)
 
 
 def reset_launches():
-    from anoddpm_torch.ops.group_norm_silu import group_norm_silu
+    from anoddpm_torch.ops.group_norm_silu import (group_norm_silu,
+                                                   group_norm_silu_backward)
     from anoddpm_torch.ops.simplex import batched_fractal3_fixed_t
     batched_fractal3_fixed_t.launches = 0
     group_norm_silu.launches = 0
+    group_norm_silu_backward.launches = 0
+
+
+def small_unet():
+    """The 32^2 fp32 UNet of the small phases, with perturbed weights."""
+    from anoddpm_torch.models.unet import UNet
+    torch.manual_seed(3)
+    model = UNet(img_size=32, base_channels=32, channel_mults=(1, 2),
+                 attention_resolutions="16")
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_(0.05 * torch.randn_like(p))
+    return model
+
+
+@contextlib.contextmanager
+def tf32_off():
+    flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+
+
+def check_small_train():
+    """One fp32 train step of the 32^2 UNet on the card (K2 with statistics,
+    K2b, fused AdamW) against the same step on the CPU (plain versions),
+    with t and one noise bank injected and TF32 off; then `train.train` at
+    that size on the card, through the test-set suite."""
+    import numpy as np
+    from anoddpm_torch import schedule, train, training
+    from anoddpm_torch.data.synthetic import SyntheticMRIDataset
+    from anoddpm_torch.models.unet import NormSiLU
+    from anoddpm_torch.ops.group_norm_silu import BACKWARD_LAUNCHES
+    cpu = small_unet()
+    gpu = small_unet().to(DEVICE)
+    sched = schedule.make_schedule(schedule.get_beta_schedule(20, "cosine"))
+    rng = np.random.default_rng(6)
+    bank = torch.from_numpy(rng.normal(size=(20, 2, 1, 32, 32)).astype(np.float32))
+    banks = {"cpu": bank, DEVICE: bank.to(DEVICE)}
+    sampler = lambda shape, t, g: banks[t.device.type][t[0]]
+    ds = SyntheticMRIDataset(img_size=(32, 32))
+    batch = torch.from_numpy(np.stack([ds[0]["image"], ds[1]["image"]])
+                             .transpose(0, 3, 1, 2).copy())
+    t = torch.tensor([3, 11])
+    sites = sum(isinstance(m, NormSiLU) for m in gpu.modules())
+    out = {}
+    with tf32_off():
+        for model in (cpu, gpu):
+            dev = next(model.parameters()).device
+            state = training.init_train_state(
+                model, training.make_optimizer(model.parameters(), 1e-4))
+            step = training.make_train_step(sched.to(dev), sampler, max_t=12)
+            before = [p.detach().clone() for p in model.parameters()]
+            counts = torch_launches()
+            m = step(state, batch.to(dev), torch.Generator(dev), t=t.to(dev))
+            if dev.type == "cuda":
+                k1, k2, k2b = (a - b for a, b in zip(torch_launches(), counts))
+                require((k1, k2, k2b) == (0, sites, sites * BACKWARD_LAUNCHES),
+                        f"small train step launched K1 {k1}, K2 {k2}, K2b {k2b}")
+            out[dev.type] = (float(m["loss"]), float(m["grad_norm"]),
+                             [(p.detach() - b).cpu() for p, b in
+                              zip(model.parameters(), before)],
+                             [p.grad.cpu() for p in model.parameters()],
+                             [b.cpu() for b in before])
+    (lc, nc, uc, gc, bc), (lg, ng, ug, gg, _) = out["cpu"], out[DEVICE]
+    gmax = max(g.abs().max().item() for g in gc)
+    worst = 0.0
+    for upd_c, upd_g, g, b in zip(uc, ug, gc, bc):
+        keep = g.abs() > 1e-3 * gmax
+        floor = torch.from_numpy(np.spacing(b.abs().numpy()))
+        excess = ((upd_g - upd_c).abs() - SMALL_TRAIN_TOL * upd_c.abs() - floor)[keep]
+        if excess.numel():
+            worst = max(worst, excess.max().item())
+    # against the largest gradient: at C = 32 a group is one channel, and the
+    # biases in front of a norm have a gradient of 0 up to rounding
+    grad_err = max((a - b).abs().max().item() for a, b in zip(gg, gc)) / gmax
+    log(f"small train step card vs CPU: loss {lg:.7f} vs {lc:.7f}, grad norm "
+        f"{ng:.6f} vs {nc:.6f}, clipped grads within {grad_err:.2e} of the "
+        f"largest, "
+        f"update excess over rtol {SMALL_TRAIN_TOL} + 1 ulp: {worst:.3e}")
+    require(abs(lg - lc) <= SMALL_TRAIN_TOL * abs(lc), "small train: loss differs")
+    require(abs(ng - nc) <= SMALL_TRAIN_TOL * abs(nc), "small train: grad norm differs")
+    require(worst <= 0.0, "small train: update differs")
+    args = small_train_args()
+    with tempfile.TemporaryDirectory() as root:
+        state = train.train(args, root_dir=root, device=DEVICE)
+        with open(os.path.join(root, "metrics", "argssmalltrain-test.json")) as f:
+            results = json.load(f)
+    require(state.step == 2 * args["iters_per_epoch"], f"{state.step} steps")
+    require(all(math.isfinite(v) for v in results.values()),
+            f"small train: testing gave {results}")
+
+
+def small_train_args():
+    from anoddpm_torch.config import defaultdict_from_json
+    return defaultdict_from_json({
+        "arg_num": "smalltrain", "img_size": [32, 32], "Batch_Size": 2,
+        "EPOCHS": 1, "T": 20, "base_channels": 32, "channel_mults": [1, 2],
+        "attention_resolutions": "16", "beta_schedule": "cosine",
+        "loss-type": "l2", "lr": 1e-4, "sample_distance": 12,
+        "train_start": True, "noise_fn": "simplex", "dataset": "synthetic",
+        "iters_per_epoch": 2, "checkpoint_every": 1, "seed": 0,
+        "compute_dtype": "bfloat16"})
 
 
 def seeded_model(args):
@@ -434,8 +661,8 @@ def main_path(model, args, k2_per_forward):
     from anoddpm_torch.ops.noise import sampler_from_args
     from anoddpm_torch.schedule import schedule_from_args
     with tempfile.TemporaryDirectory() as root:
-        checkpoint.save_checkpoint(root, args, 0, {}, model.state_dict(),
-                                   final=True)
+        checkpoint.save_checkpoint(root, args, 0, model.state_dict(),
+                                   model.state_dict(), {}, final=True)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
@@ -444,14 +671,16 @@ def main_path(model, args, k2_per_forward):
             token=CONFIG, root_dir=root, max_volumes=VOLUMES, device=DEVICE)
         torch.cuda.synchronize()
         wall = time.time() - t0
-        k1, k2 = torch_launches()
+        k1, k2, k2b = torch_launches()
         with open(os.path.join(root, "metrics", f"args{CONFIG}.csv")) as f:
             csv = f.read().strip()
-    log(f"main path: {VOLUMES} volumes x {BATCH} slices, lambda {LAMBDA}: "
-        f"{wall:.2f} s including checkpoint load; launches K1 {k1}, K2 {k2}")
+    log(f"detection path: {VOLUMES} volumes x {BATCH} slices, lambda {LAMBDA}: "
+        f"{wall:.2f} s including checkpoint load; launches K1 {k1}, K2 {k2}, "
+        f"K2b {k2b}")
     log(f"metrics csv: {csv!r}")
     require(k1 == VOLUMES * (LAMBDA + 1), f"K1 launched {k1} times")
     require(k2 == VOLUMES * k2_per_forward * LAMBDA, f"K2 launched {k2} times")
+    require(k2b == 0, f"K2b launched {k2b} times without autograd")
     require(all(math.isfinite(summary[k]) for k in detect.METRIC_NAMES),
             f"non-finite detection metrics: {summary}")
     # the steady rate: one more volume group on the warm model
@@ -470,7 +699,120 @@ def main_path(model, args, k2_per_forward):
         f"{group_s / LAMBDA * 1e3:.3f} ms per reverse step; AUC "
         f"{sum(out['auc']) / slices:.4f}; peak memory of the main path "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    return k1, k2
+    return k1, k2, k2b
+
+
+class Tee(io.TextIOBase):
+    """Writes to `out` and keeps a copy."""
+
+    def __init__(self, out):
+        self.out, self.kept = out, io.StringIO()
+
+    def write(self, text):
+        self.kept.write(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+
+def train_path(args, k2_per_forward, card):
+    """`train.train` at full width with only the cuts of TRAIN_CUTS, then a
+    RESUME_RECENT leg; exact launch counts per step, the restored AdamW
+    state against the saved one, and a steady window of train steps."""
+    from anoddpm_torch import train, training
+    from anoddpm_torch.config import defaultdict_from_json
+    from anoddpm_torch.ops.group_norm_silu import BACKWARD_LAUNCHES
+    targs = defaultdict_from_json({**args, **TRAIN_CUTS, "skip_test_eval": True})
+    iters, epochs = TRAIN_CUTS["iters_per_epoch"], TRAIN_CUTS["EPOCHS"]
+    steps = (epochs + 1) * iters
+    sweep_t = int(targs["T"])
+    log(f"training path: args{CONFIG} at full width (batch "
+        f"{targs['Batch_Size']}, {targs['compute_dtype']}, {targs['noise_fn']} "
+        f"noise), cut: {TRAIN_CUTS}, skip_test_eval (testing ran in the small "
+        f"phase); the purge of periodic checkpoints is patched out so that "
+        f"RESUME_RECENT has one to read")
+
+    def expect(counts, n_steps, sweeps, what):
+        want = (n_steps, k2_per_forward * (n_steps + sweeps * sweep_t),
+                k2_per_forward * BACKWARD_LAUNCHES * n_steps)
+        log(f"{what}: launches K1 {counts[0]}, K2 {counts[1]}, K2b {counts[2]} "
+            f"(expected {want}: per step K1 1, K2 {k2_per_forward}, K2b "
+            f"{k2_per_forward} x {BACKWARD_LAUNCHES}; K2 {k2_per_forward} per "
+            f"forward of the {sweep_t}-step VLB sweep)")
+        require(tuple(counts) == want, f"{what}: launch counts {counts} != {want}")
+
+    purge = train.purge_checkpoints
+    train.purge_checkpoints = lambda *a, **k: None
+    try:
+        with tempfile.TemporaryDirectory() as root:
+            tee = Tee(sys.stdout)
+            reset_launches()
+            t0 = time.time()
+            with contextlib.redirect_stdout(tee):
+                first = train.train(targs, root_dir=root, device=DEVICE)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            leg1 = torch_launches()
+            expect(leg1, steps, 1, f"leg 1 ({steps} steps, {wall:.1f} s)")
+            require(first.step == steps, f"leg 1 took {first.step} steps")
+            sweep = re.search(r"VLB sweep ([0-9.]+) s", tee.kept.getvalue())
+            require(sweep is not None, "no VLB sweep was printed")
+            with open(os.path.join(root, "metrics", f"args{CONFIG}-train.jsonl")) as f:
+                record = json.loads(f.readline())
+            require(math.isfinite(record["loss"]), f"epoch 0 loss {record['loss']}")
+            fresh = train.new_train_state(targs, torch.device(DEVICE))
+            epoch = train.restore_train_state(fresh, root, targs, "RESUME_RECENT")
+            saved, restored = (training.optimizer_state(s) for s in (first, fresh))
+            same = (epoch == epochs and saved.keys() == restored.keys() and all(
+                torch.equal(saved[n][k], restored[n][k])
+                for n in saved for k in saved[n]) and all(
+                torch.equal(a, b) for a, b in zip(first.model.parameters(),
+                                                  fresh.model.parameters())))
+            require(same, "the restored model or AdamW state differs from the "
+                    "saved one")
+            log(f"RESUME_RECENT restored epoch {epoch}: model and AdamW state "
+                f"({len(saved)} parameters, step {float(next(iter(saved.values()))['step']):.0f}) "
+                f"equal the saved ones")
+            del fresh, first
+            reset_launches()
+            second = train.train(targs, root_dir=root, resume="RESUME_RECENT",
+                                 device=DEVICE)
+            torch.cuda.synchronize()
+            leg2 = torch_launches()
+            expect(leg2, iters, 0, f"leg 2 (resumed, {iters} steps)")
+    finally:
+        train.purge_checkpoints = purge
+    # the steady rate: more steps of the resumed state on the same batches
+    from anoddpm_torch.data.datasets import dataset_from_args
+    from anoddpm_torch.data.pipeline import to_nchw
+    from anoddpm_torch.ops.noise import sampler_from_args
+    from anoddpm_torch.schedule import schedule_from_args
+    import numpy as np
+    ds = dataset_from_args(ROOT, targs)
+    batch = to_nchw(np.stack([ds[i]["image"] for i in range(TRAIN_BATCH)])).to(DEVICE)
+    step = training.make_train_step(
+        schedule_from_args(targs).to(DEVICE), sampler_from_args(targs),
+        max_t=min(int(targs["sample_distance"]), int(targs["T"])))
+    gen = torch.Generator(device=DEVICE).manual_seed(9)
+    for _ in range(3):
+        step(second, batch, gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    for _ in range(STEADY_STEPS):
+        metrics = step(second, batch, gen)
+    torch.cuda.synchronize()
+    step_ms = (time.time() - t0) / STEADY_STEPS * 1e3
+    loss = float(metrics["loss"])
+    require(math.isfinite(loss), f"train loss {loss}")
+    log(f"train step at args{CONFIG}, batch {TRAIN_BATCH} ({card}): "
+        f"{step_ms:.3f} ms per step over {STEADY_STEPS} steps = "
+        f"{TRAIN_BATCH / step_ms * 1e3:.2f} images/s; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; VLB sweep "
+        f"({sweep_t} forwards at batch {TRAIN_BATCH}) {sweep.group(1)} s; "
+        f"loss {loss:.5f}")
+    return [a + b for a, b in zip(leg1, leg2)]
 
 
 def main():
@@ -488,14 +830,28 @@ def main():
     model = seeded_model(args)
     sites = k2_sites(model)
     k2_row = check_k2(sites)
+    k2b_row = check_k2b(sites)
     check_small_chain()
-    k1_row["launches"], k2_row["launches"] = main_path(model, args, len(sites))
+    check_small_train()
+    detect_counts = main_path(model, args, len(sites))
+    del model
+    torch.cuda.empty_cache()
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    train_counts = train_path(args, len(sites), card)
+    rows = (k1_row, k2_row, k2b_row)
+    for row, d, t in zip(rows, detect_counts, train_counts):
+        row["launches"] = d + t
+        row["launches_by_path"] = {"detect": d, "train": t}
+        row.setdefault("library_device_ms", None)
+        row.setdefault("note", None)
     log(f"total {time.time() - t_start:.1f} s")
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "device_ms", "host_us_per_call", "plain_ms", "bound_ms",
-            "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: row[k] for k in keys}
-                                  for row in (k1_row, k2_row)]}))
+    keys = ("name", "route", "source", "replaces", "launches",
+            "launches_by_path", "max_abs_err", "ms", "device_ms",
+            "host_us_per_call", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "library_device_ms", "note")
+    print(json.dumps({"kernels": [{k: row[k] for k in keys} for row in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

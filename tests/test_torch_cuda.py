@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain PyTorch versions on the card.
+"""The port's CUDA kernels (K1, K2 and K2b, K2's gradient) against their
+plain PyTorch versions on the card.
 
 These tests carry the `cuda` marker and skip without a CUDA device.  On a
 machine with a card (and no JAX), run them with
@@ -176,3 +177,93 @@ def test_group_norm_silu_rejects_channels_last(cuda):
     x = torch.randn(1, 64, 8, 8, device=cuda).to(memory_format=torch.channels_last)
     with pytest.raises(ValueError, match="contiguous"):
         gn.group_norm_silu(x, torch.ones(64, device=cuda), torch.zeros(64, device=cuda))
+
+
+# (C, H, W) of the 85 K2 sites of args256syn128's UNet (the training batch
+# is 8); out_norm's (128, 256, 256) site runs in fp32, the others in bf16.
+TRAIN_SITES = [(512, 8, 8), (1024, 8, 8), (256, 16, 16), (512, 16, 16),
+               (768, 16, 16), (1024, 16, 16), (256, 32, 32), (512, 32, 32),
+               (768, 32, 32), (128, 64, 64), (256, 64, 64), (384, 64, 64),
+               (512, 64, 64), (128, 128, 128), (256, 128, 128),
+               (384, 128, 128), (128, 256, 256), (256, 256, 256)]
+
+
+def _check_group_norm_silu_backward(x, grad_out, gamma, beta):
+    """One K2b call against the plain backward: dx within atol = rtol =
+    1e-4 (fp32) or one bf16 ulp (1e-4 floor); dgamma and dbeta within 1e-4
+    of their largest magnitude (fp32 sums in another order)."""
+    _, mean, rstd = gn.group_norm_silu_with_stats(x, gamma, beta)
+    before = gn.group_norm_silu_backward.launches
+    dx, dgamma, dbeta = gn.group_norm_silu_backward(x, grad_out, gamma, beta,
+                                                    mean, rstd)
+    assert gn.group_norm_silu_backward.launches == before + gn.BACKWARD_LAUNCHES
+    want = gn._plain_backward(x, grad_out, gamma, beta, mean, rstd)
+    assert dx.dtype == x.dtype and dgamma.dtype == dbeta.dtype == torch.float32
+    diff = (dx.float() - want[0].float()).abs()
+    if x.dtype == torch.float32:
+        assert (diff <= 1e-4 + 1e-4 * want[0].abs()).all(), diff.max()
+    else:
+        ulp = torch.exp2(torch.floor(torch.log2(want[0].float().abs().clamp_min(1e-30))) - 7)
+        assert (diff <= ulp.clamp_min(1e-4)).all(), diff.max()
+    for got, w in ((dgamma, want[1]), (dbeta, want[2])):
+        assert (got - w).abs().max() <= 1e-4 * w.abs().max().clamp_min(1e-30)
+    return dx, dgamma, dbeta
+
+
+@pytest.mark.parametrize("chw", TRAIN_SITES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_group_norm_silu_backward_sites(cuda, chw, dtype):
+    x, gamma, beta = _inputs((8,) + chw, dtype, cuda, seed=chw[0] + chw[1])
+    grad_out = torch.randn(x.shape, device=cuda).to(dtype)
+    _check_group_norm_silu_backward(x, grad_out, gamma, beta)
+
+
+@pytest.mark.parametrize("shape", [(1, 32, 1, 1), (2, 96, 7, 9), (3, 64, 33, 17)])
+def test_group_norm_silu_backward_odd_shapes(cuda, shape):
+    """Groups of one element, and planes that are not a whole number of
+    16-byte vectors (scalar accesses)."""
+    for dtype in (torch.float32, torch.bfloat16):
+        x, gamma, beta = _inputs(shape, dtype, cuda)
+        _check_group_norm_silu_backward(
+            x, torch.randn(shape, device=cuda).to(dtype), gamma, beta)
+
+
+def test_group_norm_silu_backward_is_deterministic(cuda):
+    x, gamma, beta = _inputs((8, 128, 256, 256), torch.bfloat16, cuda)
+    grad_out = torch.randn(x.shape, device=cuda).to(torch.bfloat16)
+    _, mean, rstd = gn.group_norm_silu_with_stats(x, gamma, beta)
+    first = gn.group_norm_silu_backward(x, grad_out, gamma, beta, mean, rstd)
+    again = gn.group_norm_silu_backward(x, grad_out, gamma, beta, mean, rstd)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+def test_autograd_through_kernels_matches_plain(cuda):
+    """The differentiable call at a 16^2 fp32 shape, with a non-contiguous
+    output gradient (the output read through a transpose): one K2 launch
+    with statistics and one K2b call; gradients equal the CPU Function's
+    (plain forward and backward) within 1e-5."""
+    x, gamma, beta = _inputs((2, 64, 16, 16), torch.float32, cuda)
+    weight = torch.randn((2, 64, 16, 16), device=cuda)
+    grads = {}
+    for dev in (cuda, torch.device("cpu")):
+        xs, gs, bs = (t.to(dev).clone().requires_grad_() for t in (x, gamma, beta))
+        k2, k2b = gn.group_norm_silu.launches, gn.group_norm_silu_backward.launches
+        y = gn.group_norm_silu(xs, gs, bs)
+        (y.transpose(2, 3) * weight.to(dev)).sum().backward()
+        if dev.type == "cuda":
+            assert gn.group_norm_silu.launches == k2 + 1
+            assert gn.group_norm_silu_backward.launches == k2b + gn.BACKWARD_LAUNCHES
+        grads[dev.type] = [t.grad.cpu() for t in (xs, gs, bs)]
+    for got, want in zip(grads["cuda"], grads["cpu"]):
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
+def test_group_norm_silu_backward_rejects_channels_last(cuda):
+    x, gamma, beta = _inputs((1, 64, 8, 8), torch.float32, cuda)
+    _, mean, rstd = gn.group_norm_silu_with_stats(x, gamma, beta)
+    xl = x.to(memory_format=torch.channels_last)
+    with pytest.raises(ValueError, match="contiguous"):
+        gn.group_norm_silu_backward(xl, xl, gamma, beta, mean, rstd)
+    with pytest.raises(ValueError, match="contiguous"):
+        gn.group_norm_silu_backward(x, torch.ones_like(xl), gamma, beta,
+                                    mean, rstd)

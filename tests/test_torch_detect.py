@@ -106,8 +106,8 @@ def test_port_checkpoint_resume_skips_corrupt(tmp_path):
     port = UNet(**CONFIGS["s2d1"])
     sd = port.state_dict()
     args = defaultdict_from_json({**ARGS, "arg_num": "rs"})
-    tckpt.save_checkpoint(str(tmp_path), args, 1, sd, sd)
-    newest = tckpt.save_checkpoint(str(tmp_path), args, 2, sd, sd)
+    tckpt.save_checkpoint(str(tmp_path), args, 1, sd, sd, {})
+    newest = tckpt.save_checkpoint(str(tmp_path), args, 2, sd, sd, {})
     with open(os.path.join(newest, "payload.msgpack"), "wb") as f:
         f.write(b"\x00garbage")
     payload, meta = tckpt.load_checkpoint(str(tmp_path), "rs",
@@ -123,7 +123,7 @@ def test_metric_calculation_writes_csv(tmp_path):
     port = UNet(**CONFIGS["s2d1"])
     sd = port.state_dict()
     args = defaultdict_from_json({**ARGS, "arg_num": "csv", "T": 6})
-    tckpt.save_checkpoint(str(tmp_path), args, 0, sd, sd, final=True)
+    tckpt.save_checkpoint(str(tmp_path), args, 0, sd, sd, {}, final=True)
     summary = tdetect.anomalous_metric_calculation(
         token="csv", root_dir=str(tmp_path), max_volumes=1, device="cpu")
     assert all(np.isfinite(summary[k]) for k in METRICS)

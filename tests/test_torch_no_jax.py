@@ -14,7 +14,11 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 
 def test_import_loads_no_jax():
     # a subprocess, because this test process imported jax in conftest
-    code = ("import sys, anoddpm_torch, anoddpm_torch.detect; "
+    code = ("import sys, anoddpm_torch, anoddpm_torch.detect, "
+            "anoddpm_torch.train, anoddpm_torch.training, "
+            "anoddpm_torch.evaluation, anoddpm_torch.observe, "
+            "anoddpm_torch.models.ema, anoddpm_torch.data.pipeline, "
+            "anoddpm_torch.data.datasets, anoddpm_torch.compat.flax_params; "
             "bad = [m for m in ('jax', 'flax', 'optax', 'anoddpm_tpu') "
             "if m in sys.modules]; print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -44,6 +48,11 @@ def test_entry_points_refuse_without_cuda(monkeypatch, tmp_path):
         detect.anomalous_metric_calculation(token="1", root_dir=str(tmp_path))
     with pytest.raises(RuntimeError):
         detect.main(["1"])
+    from anoddpm_torch import train
+    from anoddpm_torch.config import load_args
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.train(load_args("256syn128", config_dir=str(ROOT / "configs")),
+                    root_dir=str(tmp_path))
     assert resolve_device("cpu") == torch.device("cpu")
 
 
@@ -58,3 +67,8 @@ def test_kernel_wrappers_refuse_other_devices():
     with pytest.raises(ValueError):
         batched_fractal3_fixed_t(torch.zeros(1, dtype=torch.int64, device="meta"),
                                  torch.zeros(1, device="meta"), (4, 4))
+    from anoddpm_torch.ops.group_norm_silu import group_norm_silu_backward
+    stats = torch.zeros((1, 32), device="meta")
+    with pytest.raises(ValueError):
+        group_norm_silu_backward(x, x, torch.ones(32), torch.zeros(32), stats,
+                                 stats)
