@@ -31,9 +31,8 @@
 // runs the same two passes with scalar accesses straight from global memory.
 
 #include <cooperative_groups.h>
-#include <cstdint>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+
+#include "cluster_staging.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -60,107 +59,8 @@ struct Params {
   float eps;
 };
 
-// 16 bytes of T, converted to and from fp32.
-template <typename T> struct Vec;
-template <> struct Vec<float> {
-  static constexpr int N = 4;
-  static __device__ __forceinline__ void load(const float* p, float* v) {
-    const float4 t = *reinterpret_cast<const float4*>(p);
-    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
-  }
-  static __device__ __forceinline__ void store(float* p, const float* v) {
-    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-  }
-};
-template <> struct Vec<__nv_bfloat16> {
-  static constexpr int N = 8;
-  static __device__ __forceinline__ void load(const __nv_bfloat16* p,
-                                              float* v) {
-    const uint4 t = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&t);
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const float2 f = __bfloat1622float2(h[k]);
-      v[2 * k] = f.x;
-      v[2 * k + 1] = f.y;
-    }
-  }
-  static __device__ __forceinline__ void store(__nv_bfloat16* p,
-                                               const float* v) {
-    uint4 t;
-    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&t);
-#pragma unroll
-    for (int k = 0; k < 4; ++k)
-      h[k] = __floats2bfloat162_rn(v[2 * k], v[2 * k + 1]);
-    *reinterpret_cast<uint4*>(p) = t;
-  }
-};
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ void from_f(float* p, float v) { *p = v; }
-__device__ __forceinline__ void from_f(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
-
 __device__ __forceinline__ float silu(float y) {
   return __fdividef(y, 1.0f + __expf(-y));
-}
-
-// Sum a and b over the warp; every lane gets the same totals.
-__device__ __forceinline__ void warp_sum2(float& a, float& b) {
-  for (int off = 16; off > 0; off >>= 1) {
-    a += __shfl_xor_sync(0xffffffffu, a, off);
-    b += __shfl_xor_sync(0xffffffffu, b, off);
-  }
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar))
-               : "memory");
-}
-
-// Copy `bytes` (a multiple of 16, both addresses 16-byte aligned) from
-// global to shared memory; `bar` completes when they have landed.
-__device__ __forceinline__ void bulk_load(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_addr(bar)),
-      "r"(bytes)
-      : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
-
-// Wait for the first phase of `bar` to complete.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_addr(bar))
-        : "memory");
-  }
-}
-
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
 // s += x, ss += x^2 over the 16-byte vectors at src[i], i = begin, begin +
@@ -312,49 +212,10 @@ __global__ void __launch_bounds__(MAX_THREADS)
   if (p.cluster > 1) cluster_wait();
 }
 
-cudaLaunchConfig_t launch_config(int blocks, int cluster, int threads,
-                                 int smem, cudaStream_t stream,
-                                 cudaLaunchAttribute* attr) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)blocks);
-  cfg.blockDim = dim3((unsigned)threads);
-  cfg.dynamicSmemBytes = (size_t)smem;
-  cfg.stream = stream;
-  attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = (unsigned)cluster;
-  attr->val.clusterDim.y = 1;
-  attr->val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = cluster > 1 ? 1 : 0;
-  return cfg;
-}
-
-// Allow the kernel the most dynamic shared memory a block can opt into and
-// clusters above the portable 8, then count how many clusters of this shape
-// the card can hold at once (0: it cannot be scheduled).
 template <typename T>
 cudaError_t prepare(int cluster, int threads, int smem, int* max_clusters) {
-  auto kernel = group_norm_silu_kernel<T>;
-  int device = 0, optin = 0;
-  cudaFuncAttributes attrs;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                                 device);
-  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attrs, kernel);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               optin - (int)attrs.sharedSizeBytes);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  if (err != cudaSuccess) return err;
-  cudaLaunchAttribute attr;
-  cudaLaunchConfig_t cfg =
-      launch_config(cluster, cluster, threads, smem, nullptr, &attr);
-  cfg.numAttrs = 1;  // the query needs the cluster shape, even of 1 block
-  return cudaOccupancyMaxActiveClusters(max_clusters, (void*)kernel, &cfg);
+  return prepare_kernel(group_norm_silu_kernel<T>, cluster, threads, smem,
+                        max_clusters);
 }
 
 template <typename T>

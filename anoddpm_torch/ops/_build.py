@@ -3,7 +3,7 @@
 Each source in `anoddpm_torch/csrc/` is compiled by `nvcc` for `sm_90a` into
 a shared library with a plain C interface, at first use, into `build/kernels/`
 at the root of the checkout (git-ignored), under a name keyed by a hash of
-the source and the flags.  The library is loaded with `ctypes`.  Nothing is
+the source, the headers it may include (`csrc/*.cuh`) and the flags.  The library is loaded with `ctypes`.  Nothing is
 built when a module is imported.
 """
 
@@ -36,7 +36,10 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> pathlib.Path:
+    """Where csrc/{name}.cu builds to, keyed by its source, the headers
+    beside it and the flags."""
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

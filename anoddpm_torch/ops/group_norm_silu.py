@@ -23,6 +23,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import struct
 from typing import NamedTuple
 
 import torch
@@ -52,10 +53,13 @@ class Plan(NamedTuple):
     smem_bytes: int
 
 
-@functools.lru_cache(maxsize=None)
-def plan(n: int, c: int, hw: int, dtype: torch.dtype) -> Plan:
-    """The launch layout for an (n, c, H W) x of `dtype`; raises on what
-    the kernel does not take."""
+def _layout(n: int, c: int, hw: int, dtype: torch.dtype, tensors: int,
+            slice_bytes: int, stage_max: int, max_threads: int):
+    """(cluster, slice_len, threads, smem_bytes) of a launch that cuts each
+    (n, g) group of `tensors` NCHW tensors of shape (n, c, H W) and `dtype`
+    into `cluster` slices of about `slice_bytes` (all tensors together), one
+    per block of at most `max_threads` threads, and stages a slice when its
+    bytes are at most `stage_max`; raises on what the kernels do not take."""
     if c <= 0 or c % GROUPS:
         raise ValueError(f"group_norm_silu: C = {c} is not a positive "
                          f"multiple of {GROUPS}")
@@ -68,19 +72,27 @@ def plan(n: int, c: int, hw: int, dtype: torch.dtype) -> Plan:
     if group_len >= 2 ** 31:
         raise ValueError(f"group_norm_silu: {group_len} elements per group "
                          "exceed int32")
-    size = torch.finfo(dtype).bits // 8
-    width = 16 // size                       # elements in 16 bytes
+    size = torch.finfo(dtype).bits // 8 * tensors   # bytes per element
+    width = 16 * tensors // size                    # elements in 16 bytes
     cluster = 1
-    while cluster < MAX_CLUSTER and group_len * size > cluster * SLICE_BYTES:
+    while cluster < MAX_CLUSTER and group_len * size > cluster * slice_bytes:
         cluster *= 2
     vectors = -(-group_len // (cluster * width))
     slice_len = vectors * width
     cluster = -(-group_len // slice_len)     # no block without elements
     if n * GROUPS * cluster >= 2 ** 31:
         raise ValueError(f"group_norm_silu: N = {n} exceeds the grid")
-    threads = min(MAX_THREADS, max(32, 1 << (vectors - 1).bit_length()))
-    staged = slice_len * size <= STAGE_MAX_BYTES and hw % width == 0
-    return Plan(cluster, slice_len, threads, slice_len * size if staged else 0)
+    threads = min(max_threads, max(32, 1 << (vectors - 1).bit_length()))
+    staged = slice_len * size <= stage_max and hw % width == 0
+    return cluster, slice_len, threads, slice_len * size if staged else 0
+
+
+@functools.lru_cache(maxsize=None)
+def plan(n: int, c: int, hw: int, dtype: torch.dtype) -> Plan:
+    """K2's launch layout for an (n, c, H W) x of `dtype`; raises on what
+    the kernel does not take."""
+    return Plan(*_layout(n, c, hw, dtype, 1, SLICE_BYTES, STAGE_MAX_BYTES,
+                         MAX_THREADS))
 
 
 def _acc_dtype(x: torch.Tensor) -> torch.dtype:
@@ -225,42 +237,94 @@ def group_norm_silu_with_stats(x: torch.Tensor, gamma: torch.Tensor,
 
 
 class BackwardPlan(NamedTuple):
-    """How K2b covers x: each (n, c) plane is cut into `chunks` chunks of
-    `chunk_len` elements (a multiple of 32 16-byte vectors); one warp owns
-    one (plane, chunk) unit in each of the kernel's two launches."""
-    chunk_len: int
-    chunks: int
+    """How one K2b launch covers x and grad_out: each (n, g) group is cut
+    into `cluster` slices of `slice_len` elements, one per block of
+    `threads` threads; the blocks of a group form a thread-block cluster
+    when there are several.  A block stages its slices of x and grad_out in
+    `smem_bytes` of dynamic shared memory; where `smem_bytes` holds the
+    slice of x alone, it reads grad_out twice from global memory instead,
+    the second time mostly from L2; where it is 0, it reads both twice with
+    scalar accesses."""
+    cluster: int
+    slice_len: int
+    threads: int
+    smem_bytes: int
 
 
-BACKWARD_LAUNCHES = 2       # K2b's CUDA launches per call: reduce, apply
-BACKWARD_VECTORS = 16       # 16-byte vectors per lane in a full chunk
-BACKWARD_WARPS = 8          # units per block (csrc: WARPS)
+BACKWARD_LAUNCHES = 2       # K2b's CUDA launches per call
+# K2b's layout limits (H100): a block aims at 64 KB of x + grad_out (three
+# blocks an SM) and stages up to 96 KB; the 2 MB groups at 256^2 (16 blocks
+# of 128 KB) stage the slice of x alone and read grad_out twice, the second
+# time mostly from L2, which `scripts/torch_k2b_layouts.py` timed faster
+# than staging both one block an SM.  256 threads a block where both slices
+# are staged, 512 where grad_out comes from global memory (more loads in
+# flight): each was the faster on its side in that script's runs.
+BACKWARD_SLICE_BYTES = 64 * 1024
+BACKWARD_STAGE_MAX_BYTES = 96 * 1024
+BACKWARD_MAX_THREADS = 256
+BACKWARD_MAX_THREADS_READ_TWICE = 512   # csrc: MAX_THREADS
 
 
 @functools.lru_cache(maxsize=None)
 def backward_plan(n: int, c: int, hw: int, dtype: torch.dtype) -> BackwardPlan:
-    """K2b's chunking for an (n, c, H W) x of `dtype`; raises on what the
-    kernel does not take."""
-    plan(n, c, hw, dtype)                    # the same shape and type limits
-    width = 16 // (torch.finfo(dtype).bits // 8)
-    step = 32 * width                        # one vector per lane
-    cdiv = lambda a, b: -(-a // b)
-    chunks = cdiv(hw, step * BACKWARD_VECTORS)
-    chunk_len = cdiv(cdiv(hw, chunks), step) * step
-    chunks = cdiv(hw, chunk_len)             # no chunk without elements
-    if cdiv(n * c * chunks, BACKWARD_WARPS) >= 2 ** 31:
-        raise ValueError(f"group_norm_silu_backward: N = {n} exceeds the grid")
-    return BackwardPlan(chunk_len, chunks)
+    """K2b's launch layout for an (n, c, H W) x and grad_out of `dtype`;
+    raises on what the kernel does not take.  Where the slices of both do
+    not fit the staging budget, the slice of x alone is staged if it fits."""
+    cluster, slice_len, threads, smem = _layout(
+        n, c, hw, dtype, 2, BACKWARD_SLICE_BYTES, BACKWARD_STAGE_MAX_BYTES,
+        BACKWARD_MAX_THREADS)
+    size = torch.finfo(dtype).bits // 8
+    if not smem and hw % (16 // size) == 0 \
+            and slice_len * size <= BACKWARD_STAGE_MAX_BYTES:
+        smem = slice_len * size
+    if smem < 2 * slice_len * size:          # grad_out read twice
+        vectors = -(-slice_len * size // 16)
+        threads = min(BACKWARD_MAX_THREADS_READ_TWICE,
+                      max(32, 1 << (vectors - 1).bit_length()))
+    return BackwardPlan(cluster, slice_len, threads, smem)
 
 
 @functools.cache
 def _backward_kernel():
-    """The built K2b library and its C entry, with argument types declared."""
+    """The built K2b library and its C entries, with argument types declared
+    (the call's arguments go as one packed `Call` struct)."""
     lib = _build.load("group_norm_silu_backward")
     fn = lib.group_norm_silu_backward
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_char_p]
     fn.restype = ctypes.c_int
+    prepare = lib.group_norm_silu_backward_prepare
+    prepare.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
+    prepare.restype = ctypes.c_int
     return lib, fn
+
+
+# csrc/group_norm_silu_backward.cu `Call`: 11 pointers (x, grad_out, gamma,
+# beta, mean, rstd, dx, dgamma, dbeta, scratch, stream), then 8 ints (n, c,
+# hw, cluster, slice_len, threads, smem, dtype code), in native layout.
+_CALL_POINTERS = struct.Struct("11P")
+_CALL_INTS = struct.Struct("8i")
+
+
+@functools.lru_cache(maxsize=None)
+def _backward_launch_args(shape: torch.Size, dtype: torch.dtype, device: int):
+    """K2b's packed shape and layout arguments for x of `shape` and `dtype`
+    on card `device` (the ints of `Call`); worked out and checked once per
+    shape.  The first call also sets the kernel's attributes on the card,
+    and raises if the card cannot hold one cluster of the layout."""
+    n, c = shape[:2]
+    hw = math.prod(shape[2:])
+    p = backward_plan(n, c, hw, dtype)
+    code = _DTYPE_CODES[dtype]
+    lib, _ = _backward_kernel()
+    count = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        status = lib.group_norm_silu_backward_prepare(
+            code, c, p.cluster, p.threads, p.smem_bytes, ctypes.byref(count))
+    _build.check(lib, status, "group_norm_silu_backward prepare")
+    if count.value < 1:
+        raise RuntimeError(f"group_norm_silu_backward: the card cannot "
+                           f"schedule a cluster of {p}")
+    return _CALL_INTS.pack(n, c, hw, *p, code)
 
 
 def group_norm_silu_backward(x: torch.Tensor, grad_out: torch.Tensor,
@@ -276,8 +340,9 @@ def group_norm_silu_backward(x: torch.Tensor, grad_out: torch.Tensor,
     if not x.is_cuda:
         raise ValueError(f"group_norm_silu_backward: unsupported device "
                          f"{x.device}")
-    if grad_out.shape != x.shape or grad_out.dtype != x.dtype \
-            or grad_out.device != x.device:
+    device = x.get_device()
+    if grad_out.shape != x.shape or grad_out.dtype is not x.dtype \
+            or grad_out.get_device() != device:
         raise ValueError("group_norm_silu_backward: grad_out must match x in "
                          "shape, dtype and device")
     if not (x.is_contiguous() and grad_out.is_contiguous()):
@@ -286,23 +351,21 @@ def group_norm_silu_backward(x: torch.Tensor, grad_out: torch.Tensor,
     n, c = x.shape[:2]
     if mean.shape != (n, GROUPS) or rstd.shape != (n, GROUPS):
         raise ValueError(f"mean and rstd must be ({n}, {GROUPS})")
-    hw = math.prod(x.shape[2:])
-    p = backward_plan(n, c, hw, x.dtype)
-    device = x.get_device()
+    ints = _backward_launch_args(x.shape, x.dtype, device)
     gamma, beta = _fp32_on(gamma, device), _fp32_on(beta, device)
     mean, rstd = _fp32_on(mean, device), _fp32_on(rstd, device)
-    part = x.new_empty((2, n * c * p.chunks), dtype=torch.float32)
     dx = torch.empty_like(x)
-    dgb = x.new_empty((2, c), dtype=torch.float32)
+    dgamma, dbeta = torch.empty_like(gamma), torch.empty_like(beta)
+    scratch = gamma.new_empty(2 * n * c)    # the per-sample sums A, B
     lib, fn = _backward_kernel()
-    status = fn(x.data_ptr(), grad_out.data_ptr(), gamma.data_ptr(),
-                beta.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
-                part.data_ptr(), dx.data_ptr(), dgb[0].data_ptr(),
-                dgb[1].data_ptr(), n, c, hw, p.chunk_len, p.chunks,
-                _DTYPE_CODES[x.dtype], torch._C._cuda_getCurrentRawStream(device))
+    status = fn(_CALL_POINTERS.pack(
+        x.data_ptr(), grad_out.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+        mean.data_ptr(), rstd.data_ptr(), dx.data_ptr(), dgamma.data_ptr(),
+        dbeta.data_ptr(), scratch.data_ptr(),
+        torch._C._cuda_getCurrentRawStream(device)) + ints)
     _build.check(lib, status, "group_norm_silu_backward")
     group_norm_silu_backward.launches += BACKWARD_LAUNCHES
-    return dx, dgb[0], dgb[1]
+    return dx, dgamma, dbeta
 
 
 group_norm_silu_backward.launches = 0

@@ -20,7 +20,8 @@ PyTorch built for CUDA.  Phases, each of which fails the run when it fails:
    microseconds per call at a small shape;
 5. kernel K2b (K2's gradient) against its plain version at every (C, H, W)
    of those sites at the training batch of 8, in fp32 and bf16, twice
-   (the two runs must agree bit for bit), with the autograd backward of
+   (the two runs must agree bit for bit), with each shape's plan and share
+   of its bytes bound, and the autograd backward of
    `F.silu(F.group_norm(x.float(), ...))` timed as the library yardstick;
 6. a small fp32 UNet chain on the card against the same chain on the CPU
    (plain versions), with one injected noise bank;
@@ -402,6 +403,9 @@ def check_k2b(sites):
     the library backward's, and the bytes bound."""
     import torch.nn.functional as F
     from anoddpm_torch.ops import group_norm_silu as gn
+    # host time before this phase runs torch.profiler, and again after its
+    # sessions (where it reads higher; both are printed)
+    host = k2b_host_us()
     gen = torch.Generator(device=DEVICE).manual_seed(13)
     timing, max_err = {}, 0.0
     for chw in sorted({s[1:] for s, _ in sites}, key=lambda s: (s[1], s[0])):
@@ -455,29 +459,42 @@ def check_k2b(sites):
                 f"max|d| {err:.3e}, dgamma/dbeta {rel:.2e} of max, bit-identical "
                 f"rerun; kernel {ms:.4f} ms back to back, {dev_ms:.4f} ms "
                 f"device-only; plain {plain_ms:.4f} ms; library {lib_ms:.4f} ms "
-                f"back to back, {lib_dev_ms:.4f} ms device-only; bound {bound:.4f} ms")
+                f"back to back, {lib_dev_ms:.4f} ms device-only; bound {bound:.4f} ms "
+                f"({bound / dev_ms:.1%} of it device-only)")
+    host_after = k2b_host_us()
     steps = [((TRAIN_BATCH,) + s[1:], dt) for s, dt in sites]
     total = [sum(timing[k][i] for k in steps) for i in range(6)]
-    x = torch.randn(K2B_HOST_SHAPE, device=DEVICE).to(torch.bfloat16)
-    gamma = torch.ones(K2B_HOST_SHAPE[1], device=DEVICE)
-    beta = torch.zeros(K2B_HOST_SHAPE[1], device=DEVICE)
-    _, mean, rstd = gn.group_norm_silu_with_stats(x, gamma, beta)
-    host = host_us(lambda: gn.group_norm_silu_backward(x, x, gamma, beta,
-                                                       mean, rstd))
     log(f"K2b per train step ({len(sites)} calls, {gn.BACKWARD_LAUNCHES} "
         f"launches each): kernel {total[0]:.3f} ms back to back, {total[1]:.3f} "
         f"ms device-only; plain {total[2]:.3f} ms; library {total[3]:.3f} ms "
-        f"back to back, {total[4]:.3f} ms device-only; bound {total[5]:.3f} ms; "
-        f"host {host:.2f} us per call at {K2B_HOST_SHAPE} bf16")
+        f"back to back, {total[4]:.3f} ms device-only; bound {total[5]:.3f} ms "
+        f"({total[5] / total[1]:.1%} of it device-only); host {host:.2f} us per "
+        f"call at {K2B_HOST_SHAPE} bf16 before the profiler's sessions, "
+        f"{host_after:.2f} us after them")
     return dict(name="group_norm_silu_backward", route="cuda",
                 source="anoddpm_torch/csrc/group_norm_silu_backward.cu",
                 replaces="anoddpm_tpu/ops/pallas_norm.py:141",
                 note="K2's gradient: the JAX package computes it in plain XLA "
                      "(_bwd), it has no Pallas form",
                 max_abs_err=max_err, ms=total[0], device_ms=total[1],
-                host_us_per_call=host, plain_ms=total[2], bound_ms=total[5],
+                host_us_per_call=host, host_us_after_profiler=host_after,
+                plain_ms=total[2], bound_ms=total[5],
                 bound_by="bytes", library_ms=total[3],
                 library_device_ms=total[4])
+
+
+def k2b_host_us(gn=None):
+    """Host microseconds per K2b call at a small shape of the train step,
+    through `gn`, a checkout's `ops.group_norm_silu` (this one's when
+    None)."""
+    if gn is None:
+        from anoddpm_torch.ops import group_norm_silu as gn
+    x = torch.randn(K2B_HOST_SHAPE, device=DEVICE).to(torch.bfloat16)
+    gamma = torch.ones(K2B_HOST_SHAPE[1], device=DEVICE)
+    beta = torch.zeros(K2B_HOST_SHAPE[1], device=DEVICE)
+    _, mean, rstd = gn.group_norm_silu_with_stats(x, gamma, beta)
+    return host_us(lambda: gn.group_norm_silu_backward(x, x, gamma, beta,
+                                                       mean, rstd))
 
 
 def check_small_chain():

@@ -267,3 +267,113 @@ def test_group_norm_silu_backward_rejects_channels_last(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         gn.group_norm_silu_backward(x, torch.ones_like(xl), gamma, beta,
                                     mean, rstd)
+
+
+def _backward_inputs(shape, dtype, device, seed=2):
+    x, gamma, beta = _inputs(shape, dtype, device, seed)
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    return x, torch.randn(shape, generator=gen, device=device).to(dtype), gamma, beta
+
+
+@pytest.mark.parametrize("shape,dtype", [((2, 128, 256, 256), torch.bfloat16),
+                                         ((2, 256, 256, 256), torch.bfloat16),
+                                         ((2, 128, 256, 256), torch.float32),
+                                         ((2, 256, 256, 256), torch.float32)])
+def test_group_norm_silu_backward_cluster_shapes(cuda, shape, dtype):
+    """Groups of 1 MB (x + grad_out, staged at 64 KB a block), 2 MB (x
+    staged, grad_out read twice) and 4 MB (nothing staged, scalar passes):
+    clusters of 16 blocks; a rerun gives the same bits."""
+    p = gn.backward_plan(shape[0], shape[1], shape[2] * shape[3], dtype)
+    assert p.cluster == 16
+    args = _backward_inputs(shape, dtype, cuda)
+    first = _check_group_norm_silu_backward(*args)
+    again = _check_group_norm_silu_backward(*args)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.parametrize("hw", [1, 63])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_group_norm_silu_backward_ragged_planes(cuda, hw, dtype):
+    """H W not a multiple of the 16-byte vector: scalar passes."""
+    _check_group_norm_silu_backward(*_backward_inputs((3, 96, 1, hw), dtype, cuda))
+
+
+@pytest.mark.parametrize("which", ["x", "grad_out"])
+@pytest.mark.parametrize("offset", [1, 3])
+def test_group_norm_silu_backward_unaligned(cuda, which, offset):
+    """x or grad_out at a storage offset that breaks 16-byte alignment, at a
+    shape whose plan stages the slices."""
+    x, go, gamma, beta = _backward_inputs((2, 128, 64, 64), torch.bfloat16, cuda)
+    t = x if which == "x" else go
+    flat = torch.empty(t.numel() + offset, dtype=t.dtype, device=cuda)
+    tu = flat[offset:].view(t.shape)
+    tu.copy_(t)
+    assert tu.data_ptr() % 16 != 0 and tu.is_contiguous()
+    if which == "x":
+        x = tu
+    else:
+        go = tu
+    assert gn.backward_plan(2, 128, 64 * 64, torch.bfloat16).smem_bytes > 0
+    _check_group_norm_silu_backward(x, go, gamma, beta)
+
+
+@pytest.mark.parametrize("n", [1, 8])
+@pytest.mark.parametrize("chw", [(256, 32, 32), (128, 128, 128)])
+def test_group_norm_silu_backward_batch_sizes(cuda, n, chw):
+    """dgamma and dbeta add the samples' sums: one sample, and eight, with
+    one block and with a cluster per group."""
+    _check_group_norm_silu_backward(*_backward_inputs((n,) + chw,
+                                                      torch.bfloat16, cuda))
+
+
+def test_group_norm_silu_backward_back_to_back(cuda):
+    """Calls on one stream with no sync between them and other N, then the
+    first shape again: each call's dgamma and dbeta add its own samples."""
+    shapes = [(3, 256, 16, 16), (5, 256, 16, 16), (3, 256, 16, 16)]
+    inputs = [_backward_inputs(s, torch.bfloat16, cuda, seed=k)
+              for k, s in enumerate(shapes)]
+    stats = [gn.group_norm_silu_with_stats(x, g_, b_)[1:]
+             for x, _, g_, b_ in inputs]
+    got = [gn.group_norm_silu_backward(x, go, g_, b_, *st)
+           for (x, go, g_, b_), st in zip(inputs, stats)]
+    for (x, go, g_, b_), st, res in zip(inputs, stats, got):
+        want = gn._plain_backward(x, go, g_, b_, *st)
+        for a, w in zip(res[1:], want[1:]):
+            assert (a - w).abs().max() <= 1e-4 * w.abs().max()
+
+
+def test_group_norm_silu_backward_two_streams(cuda):
+    """Calls running at once on two streams give each its own gradients."""
+    args = [_backward_inputs((4, 512, 16, 16), torch.bfloat16, cuda, seed=k)
+            for k in range(2)]
+    stats = [gn.group_norm_silu_with_stats(x, g_, b_)[1:] for x, _, g_, b_ in args]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream() for _ in args]
+    got = []
+    for s, (x, go, g_, b_), st in zip(streams, args, stats):
+        with torch.cuda.stream(s):
+            got.append([gn.group_norm_silu_backward(x, go, g_, b_, *st)
+                        for _ in range(20)][-1])
+    torch.cuda.synchronize()
+    for (x, go, g_, b_), st, res in zip(args, stats, got):
+        want = gn._plain_backward(x, go, g_, b_, *st)
+        for a, w in zip(res[1:], want[1:]):
+            assert (a - w).abs().max() <= 1e-4 * w.abs().max()
+
+
+@pytest.mark.parametrize("shape", [(8, 512, 8, 8), (8, 128, 256, 256)])
+def test_group_norm_silu_backward_launches_per_call(cuda, shape):
+    """One call is BACKWARD_LAUNCHES kernels, all K2b's, and nothing else."""
+    from torch.profiler import ProfilerActivity, profile
+    x, go, gamma, beta = _backward_inputs(shape, torch.bfloat16, cuda)
+    _, mean, rstd = gn.group_norm_silu_with_stats(x, gamma, beta)
+    gn.group_norm_silu_backward(x, go, gamma, beta, mean, rstd)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        gn.group_norm_silu_backward(x, go, gamma, beta, mean, rstd)
+        torch.cuda.synchronize()
+    kernels = {e.key: e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA}
+    assert sum(kernels.values()) == gn.BACKWARD_LAUNCHES and all(
+        "group_norm_silu_bwd" in k for k in kernels), \
+        (kernels, [e.key for e in prof.key_averages()])
