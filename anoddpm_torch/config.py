@@ -4,14 +4,36 @@ Own copy of the contract in `anoddpm_tpu/config.py`: experiments are
 ``configs/args{N}.json`` files, any key not present resolves to ``""``
 (defaultdict-str semantics), and the experiment number is injected as
 ``args["arg_num"]``.  The CLI accepts ``28``, ``args28`` or ``args28.json``.
+Because a missing key resolves to ``""``, `load_args` warns on every key
+outside `KNOWN_KEYS`: a misspelled key would otherwise change behaviour
+without a sign.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import warnings
 from collections import defaultdict
-from typing import Any, Dict
+from typing import Any, Dict, List
+
+# The keys of the reference's configs and the JAX package's extensions
+# (the same set as `anoddpm_tpu/config.py:KNOWN_KEYS`).
+KNOWN_KEYS = {
+    "img_size", "Batch_Size", "EPOCHS", "T", "base_channels", "beta_schedule",
+    "channel_mults", "loss-type", "loss_weight", "train_start", "lr",
+    "random_slice", "sample_distance", "weight_decay", "save_imgs",
+    "save_vids", "dropout", "attention_resolutions", "num_heads",
+    "num_head_channels", "noise_fn", "dataset", "channels", "arg_num",
+    "compute_dtype", "seed", "mesh", "num_res_blocks", "iters_per_epoch",
+    "simplex_octaves", "simplex_persistence", "simplex_frequency",
+    "simplex_table",
+    "checkpoint_every", "ema_decay", "grad_clip_norm",
+    "train_substeps", "sampler", "ddim_steps", "ddim_eta", "space_to_depth",
+    "bf16_norm", "lesion_kind", "lesion_severity", "recon_repeats",
+    "anomalous_volumes",
+    "_note",  # free-form provenance comment in shipped configs
+}
 
 DEFAULTS: Dict[str, Any] = {
     "compute_dtype": "bfloat16",
@@ -41,12 +63,24 @@ def normalise_arg_token(token: str) -> str:
     return token
 
 
+def validate_args(raw: Dict[str, Any], source: str = "") -> List[str]:
+    """Warn once per key of `raw` that no component reads, and return those
+    keys sorted.  The keys still pass through untouched."""
+    unknown = sorted(k for k in raw if k not in KNOWN_KEYS)
+    where = f" in {source}" if source else ""
+    for k in unknown:
+        warnings.warn(f"unknown config key {k!r}{where}: no component reads "
+                      "it (missing keys default to \"\")", stacklevel=2)
+    return unknown
+
+
 def load_args(token: str, config_dir: str = "configs") -> "defaultdict[str, Any]":
     """Load args{N}.json by experiment token, injecting arg_num and defaults."""
     arg_num = normalise_arg_token(str(token))
     path = os.path.join(config_dir, f"args{arg_num}.json")
     with open(path, "r") as f:
         raw = json.load(f)
+    validate_args(raw, source=path)
     args = defaultdict_from_json(raw)
     args["arg_num"] = arg_num
     for k, v in DEFAULTS.items():

@@ -63,6 +63,12 @@ def to_nchw(array: np.ndarray) -> torch.Tensor:
         np.asarray(array).transpose(0, 3, 1, 2), np.float32))
 
 
+def to_nhwc(x: torch.Tensor) -> np.ndarray:
+    """An NCHW tensor (or (F, B, C, H, W) frames) on any device as NHWC
+    numpy."""
+    return x.movedim(-3, -1).cpu().numpy()
+
+
 class _Failed:
     """The producer's exception, handed to the consumer to raise."""
 

@@ -1,16 +1,30 @@
-"""Anomaly-detection entry point, headline protocol:
-``python -m anoddpm_torch.detect [CHECKPOINT] <ARG_NUM> [VB=n]``.
+"""Anomaly-detection entry point:
+``python -m anoddpm_torch.detect [CHECKPOINT] <ARG_NUM> [MODE ...]``.
 
-Counterpart of `anoddpm_tpu/detect.py:82-231, 537-545`: every anomalous
-slice is q-jumped to t = lambda - 1 (lambda = 200, clamped to T) and
-denoised by lambda reverse steps; AUC is computed on the raw square-error
-map and the other metrics on the map thresholded at 0.5; the summary goes to
-metrics/args{n}.csv with header ``dice,ssim,iou,precision,recall,fpr,auc``
-and "mean +- std" cells.
+Counterpart of `anoddpm_tpu/detect.py` on one card.  Modes:
 
-Images and masks cross the public functions as NHWC numpy arrays, as in the
-JAX package.  The entry points run on the card unless the caller passes
-`device="cpu"`.
+- ``metrics`` (the default; ``VB=n``): the headline protocol.  Every
+  anomalous slice is q-jumped to t = lambda - 1 (lambda = 200, clamped to
+  T) and denoised by lambda reverse steps (``sampler: ddim``: `ddim_steps`
+  strided steps, default 25, at `ddim_eta`, default 0); AUC on the raw
+  square-error map, the other metrics on the map thresholded at 0.5;
+  metrics/args{n}.csv with header ``dice,ssim,iou,precision,recall,fpr,auc``
+  and "mean +- std" cells.
+- ``validation``: per-slice "whole"-sequence videos and heatmaps, then the
+  method sweeps by noise kind (`anomalous_validation`).
+- ``graph`` (``DENSE``, ``STEP=s``, ``VOLS=n``, ``LB=b``): per-lambda
+  metric curves, the lambda grid riding the batch axis
+  (`graph_data`).
+- ``roc <ARG_NUM2> ...`` (``LESION=kind[:severity]``): the pixel ROC
+  comparison of several checkpoints (`roc_data`).
+- ``methodA`` / ``methodB``: detection methods A and B on the first
+  anomalous slice.
+
+The artifact paths and CSV headers are the JAX package's.  Images and
+masks cross the public functions as NHWC numpy arrays.  The entry points
+run on the card unless the caller passes `device="cpu"`.  Not ported yet,
+and raising with their ROADMAP item: the context-encoder curve (``CE=``),
+every `mesh` argument, and the noise kinds of Queue 1 item 5.
 """
 
 from __future__ import annotations
@@ -24,17 +38,34 @@ import numpy as np
 import torch
 
 from . import diffusion as dmod
+from . import graphs
 from . import metrics as M
+from . import visualize as vz
 from .checkpoint import load_parameters
 from .config import resolve_in_channels
 from .data.datasets import anomalous_dataset_from_args
+from .data.pipeline import to_nchw, to_nhwc
 from .device import DeviceLike, resolve_device
 from .models.unet import unet_from_args
-from .ops.noise import sampler_from_args
+from .ops.noise import make_noise_sampler, sampler_from_args
 from .schedule import schedule_from_args
 
 METRIC_NAMES = ("dice", "ssim", "iou", "precision", "recall", "fpr", "auc")
-_USAGE = "usage: python -m anoddpm_torch.detect [CHECKPOINT] <ARG_NUM> [VB=n]"
+_USAGE = ("usage: python -m anoddpm_torch.detect [CHECKPOINT] <ARG_NUM> "
+          "[metrics [VB=n] | validation | graph [DENSE] [STEP=s] [VOLS=n] "
+          "[LB=b] | roc <ARG_NUM2>... [LESION=kind[:severity]] | methodA | "
+          "methodB]")
+_MODES = ("metrics", "validation", "graph", "roc", "methodA", "methodB")
+
+
+def _refuse_mesh(mesh) -> None:
+    if mesh is not None:
+        raise NotImplementedError("a mesh is not ported yet (ROADMAP.md, "
+                                  "Queue 1: data parallel)")
+
+
+def _device_of(em) -> torch.device:
+    return next(em.parameters()).device
 
 
 def _load_eval_model(root_dir: str, token: str, use_checkpoint: bool = False,
@@ -65,12 +96,9 @@ def evaluate_anomaly_batch(em, sched, images, masks, generator: torch.Generator,
         fb = lambda x, g: dmod.forward_backward(
             em, sched, x, t_distance, g, noise_sampler=noise_sampler,
             denoise_sampler=noise_sampler)
-    device = next(em.parameters()).device
-    x = torch.from_numpy(np.ascontiguousarray(
-        images.transpose(0, 3, 1, 2), np.float32)).to(device)
+    x = to_nchw(images).to(_device_of(em))
     with torch.inference_mode():
-        recon = fb(x, generator)
-    recon = recon.permute(0, 2, 3, 1).cpu().numpy()
+        recon = to_nhwc(fb(x, generator))
     batched = M.batched_anomaly_metrics(images, recon, masks)
     out = {k: [float(v) for v in batched[k]] for k in METRIC_NAMES}
     return out, recon
@@ -85,7 +113,8 @@ def anomalous_metric_calculation(args=None, root_dir: str = ".",
                                  volume_batch: Optional[int] = None,
                                  device: DeviceLike = None) -> Dict[str, float]:
     """The headline-metric producer: lambda = 200 partial diffusion per
-    anomalous slice; writes metrics/args{n}.csv and returns the summary.
+    anomalous slice (DDPM, or DDIM with args["sampler"] == "ddim"); writes
+    metrics/args{n}.csv and returns the summary.
 
     `volume_batch` (or args["volume_batch"]) runs the slices of that many
     volumes as one batch; `args["recon_repeats"]` averages that many
@@ -94,13 +123,9 @@ def anomalous_metric_calculation(args=None, root_dir: str = ".",
     if em is None:
         args, em, sched = _load_eval_model(root_dir, token, use_checkpoint,
                                            device)
-    elif next(em.parameters()).device.type != device.type:
-        raise ValueError(f"model on {next(em.parameters()).device}, "
-                         f"asked to run on {device}")
+    elif _device_of(em).type != device.type:
+        raise ValueError(f"model on {_device_of(em)}, asked to run on {device}")
     sched = sched.to(device)
-    if str(args.get("sampler") or "ddpm") == "ddim":
-        raise NotImplementedError("sampler=ddim is not ported yet (ROADMAP.md, "
-                                  "Queue 1: DDIM)")
     # lambda = 200 against T = 1000 in the reference; clamp for short
     # schedules where 200 would index past T
     t_distance = min(t_distance, sched.num_timesteps)
@@ -109,9 +134,19 @@ def anomalous_metric_calculation(args=None, root_dir: str = ".",
     n_volumes = len(d_set) if max_volumes is None else min(len(d_set),
                                                            max_volumes)
 
-    def fb(x, g):
-        return dmod.forward_backward(em, sched, x, t_distance, g,
-                                     noise_sampler=noise_sampler)
+    if str(args.get("sampler") or "ddpm") == "ddim":
+        ddim_steps = int(args.get("ddim_steps") or 25)
+        ddim_eta = float(args.get("ddim_eta") or 0.0)
+
+        def fb(x, g):
+            return dmod.forward_backward_ddim(em, sched, x, t_distance,
+                                              ddim_steps, g,
+                                              noise_sampler=noise_sampler,
+                                              eta=ddim_eta)
+    else:
+        def fb(x, g):
+            return dmod.forward_backward(em, sched, x, t_distance, g,
+                                         noise_sampler=noise_sampler)
 
     repeats = int(args.get("recon_repeats") or 1)
     if repeats > 1:
@@ -164,25 +199,458 @@ def _write_metrics_csv(root_dir: str, arg_num, summary) -> None:
         f.write("\n")
 
 
-def main(argv=None):
+def _eval_inputs(args, root_dir, token, use_checkpoint, device):
+    """(args, em, sched) from `args` when it is that triple, else the
+    checkpoint of `token`."""
+    if args is None:
+        return _load_eval_model(root_dir, token, use_checkpoint,
+                                resolve_device(device))
+    args, em, sched = args
+    return args, em, sched.to(_device_of(em))
+
+
+def _mean_recon(em, sched, x, t_distance, generator, sampler, avg):
+    """(avg, B, H, W, C) reconstructions of x by `forward_backward`:
+    `sampler`'s noise for the q-jump, Gaussian noise for the reverse
+    steps."""
+    with torch.inference_mode():
+        return np.stack([to_nhwc(dmod.forward_backward(
+            em, sched, x, t_distance, generator, noise_sampler=sampler,
+            denoise_sampler=make_noise_sampler("gauss")))
+            for _ in range(avg)])
+
+
+def detection_A(args, em, sched, x_0, mask, file_id, root_dir: str = ".",
+                total_avg: int = 2, generator: Optional[torch.Generator] = None):
+    """Method A: simplex frequency 2^7 .. 2^1 times lambda in {50, 100, ...,
+    < 0.6 T}; the mean of `total_avg` reconstructions; one comparison grid
+    per pair, diffusion-videos/ARGS={n}/Anomalous/{file_id}/A/
+    freq={i}-t={lambda}.png.  The q-jump goes to lambda - 1, as in
+    `forward_backward` (the reference's method A jumps to lambda; the JAX
+    package normalises it so, PARITY.md); the reverse noise is Gaussian."""
+    device = _device_of(em)
+    if generator is None:
+        generator = torch.Generator(device=device).manual_seed(2)
+    out_dir = os.path.join(root_dir, "diffusion-videos",
+                           f"ARGS={args['arg_num']}", "Anomalous",
+                           str(file_id), "A")
+    x_np, mask = np.asarray(x_0, np.float32), np.asarray(mask)
+    x = to_nchw(x_np).to(device)
+    for i in range(7, 0, -1):
+        sampler = make_noise_sampler("simplex", frequency=float(2 ** i))
+        for t_distance in range(50, int(int(args["T"]) * 0.6), 50):
+            output = _mean_recon(em, sched, x, t_distance, generator, sampler,
+                                 total_avg)
+            output_mean = output.mean(axis=0)
+            mse = ((output_mean - x_np) ** 2 * 2) - 1
+            mse_threshold = ((mse > 0).astype(np.float32) * 2) - 1
+            panels = np.concatenate([x_np, output[:3, 0], output_mean, mse,
+                                     mse_threshold, mask], axis=0)
+            vz.save_grid_png(os.path.join(out_dir,
+                                          f"freq={i}-t={t_distance}.png"),
+                             panels, row_size=4)
+
+
+def detection_B(args, em, sched, x_0, mask, file_id,
+                denoise_fn: str = "octave", root_dir: str = ".",
+                total_avg: int = 5, generator: Optional[torch.Generator] = None):
+    """Method B ("octave": simplex, 6 octaves at frequency 64, lambda <
+    0.6 T) or C ("gauss", lambda < 0.8 T): per lambda in {50, 100, ...} the
+    mean of `total_avg` reconstructions, a heatmap figure
+    diffusion-videos/ARGS={n}/Anomalous/{file_id}/{denoise_fn}/
+    heatmap-t={lambda}.png, and its Dice; returns the Dice per lambda."""
+    device = _device_of(em)
+    if generator is None:
+        generator = torch.Generator(device=device).manual_seed(3)
+    out_dir = os.path.join(root_dir, "diffusion-videos",
+                           f"ARGS={args['arg_num']}", "Anomalous",
+                           str(file_id), denoise_fn)
+    if denoise_fn == "octave":
+        end = int(int(args["T"]) * 0.6)
+        sampler = make_noise_sampler("simplex", octaves=6, persistence=0.8,
+                                     frequency=64)
+    else:
+        end = int(int(args["T"]) * 0.8)
+        sampler = make_noise_sampler("gauss")
+    x_np, mask = np.asarray(x_0, np.float32), np.asarray(mask)
+    x = to_nchw(x_np).to(device)
+    dice_scores = []
+    for t_distance in range(50, end, 50):
+        output_mean = _mean_recon(em, sched, x, t_distance, generator, sampler,
+                                  total_avg).mean(axis=0)
+        vz.heatmap_figure(x_np, output_mean, mask,
+                          os.path.join(out_dir, f"heatmap-t={t_distance}.png"))
+        dice_scores.append(M.dice_coeff(x_np, output_mean, mask))
+    return dice_scores
+
+
+def detection_A_fixedT(args, em, sched, x_0, mask, end_freq: int = 6,
+                       t_distance: int = 250,
+                       generator: Optional[torch.Generator] = None) -> np.ndarray:
+    """Fixed lambda = 250 at simplex frequency 2^1 .. 2^end_freq (forward and
+    reverse noise): per frequency the rows x_0, x_noised, recon, square
+    error, thresholded map, mask, stacked into one NHWC array."""
+    del args
+    device = _device_of(em)
+    if generator is None:
+        generator = torch.Generator(device=device).manual_seed(4)
+    x_np, mask = np.asarray(x_0, np.float32), np.asarray(mask)
+    x = to_nchw(x_np).to(device)
+    t_batch = torch.full((x.shape[0],), t_distance - 1, dtype=torch.int64,
+                         device=device)
+    rows = []
+    for i in range(1, end_freq + 1):
+        sampler = make_noise_sampler("simplex", frequency=float(2 ** i))
+        with torch.inference_mode():
+            x_noised = dmod.sample_q(sched, x, t_batch,
+                                     sampler(x.shape, t_batch, generator))
+            recon = to_nhwc(dmod.denoise_chain(em, sched, x_noised,
+                                                 t_distance, generator,
+                                                 noise_sampler=sampler))
+        mse = ((x_np - recon) ** 2 * 2) - 1
+        thresh = ((mse > 0).astype(np.float32) * 2) - 1
+        rows.append(np.concatenate([x_np, to_nhwc(x_noised), recon, mse,
+                                    thresh, mask], axis=0))
+    return np.concatenate(rows, axis=0)
+
+
+def anomalous_validation(args=None, root_dir: str = ".",
+                         token: Optional[str] = None,
+                         max_volumes: Optional[int] = None,
+                         max_slices: int = 4,
+                         detection_avg: int = 3,
+                         use_checkpoint: bool = False,
+                         device: DeviceLike = None):
+    """Per-slice videos and heatmaps, then the detection sweeps by noise
+    kind, for `max_slices` slices of every anomalous volume (or
+    `max_volumes`).  `args` is an (args, em, sched) triple, or None to load
+    `token`'s checkpoint.
+
+    Per slice: a timestep drawn in [0.3, 0.8) x sample_distance for gauss
+    configs, [0.1, 0.6) otherwise, quantised to a 50-step grid (1 below a
+    sample_distance of 100) and clamped to [quantum, T]; a "whole"-sequence
+    `forward_backward` -> diffusion-videos/ARGS={n}/Anomalous/{volume}/
+    {slice}/t={t}.mp4 (or .gif) and the heatmap t={t}.png beside it; then
+    detection_B ("gauss" for gauss configs, else "octave"), and for
+    simplex_randParam detection_A too.  Returns the heatmap Dice per
+    slice."""
+    args, em, sched = _eval_inputs(args, root_dir, token, use_checkpoint,
+                                   device)
+    device = _device_of(em)
+    noise_sampler = sampler_from_args(args)
+    noise_kind = str(args.get("noise_fn") or "simplex")
+    d_set = anomalous_dataset_from_args(root_dir, args)
+    generator = torch.Generator(device=device).manual_seed(5)
+    n = len(d_set) if max_volumes is None else min(len(d_set), max_volumes)
+    sample_distance = int(args.get("sample_distance") or sched.num_timesteps)
+    lo, hi = ((0.3, 0.8) if noise_kind == "gauss" else (0.1, 0.6))
+    quantum = 50 if sample_distance >= 100 else 1
+    t_lo = int(sample_distance * lo)
+    t_hi = max(int(sample_distance * hi), t_lo + 1)
+    dice_data = []
+    start = time.time()
+    for i in range(n):
+        sample = d_set[i]
+        images = np.asarray(sample["image"])
+        masks = np.asarray(sample["mask"])
+        if images.ndim == 3:
+            images, masks = images[None], masks[None]
+        file_id = os.path.basename(str(sample["filenames"]))
+        slice_ids = list(sample.get("slices", range(images.shape[0])))
+        vol_dir = os.path.join(root_dir, "diffusion-videos",
+                               f"ARGS={args['arg_num']}", "Anomalous", file_id)
+        for s in range(min(images.shape[0], max_slices)):
+            x_np, mask = images[s:s + 1], masks[s:s + 1]
+            timestep = int(torch.randint(t_lo, t_hi, (), generator=generator,
+                                         device=device))
+            timestep = round(timestep / quantum) * quantum
+            timestep = max(quantum, min(timestep, sched.num_timesteps))
+            with torch.inference_mode():
+                recon, frames = dmod.forward_backward_sequence(
+                    em, sched, to_nchw(x_np).to(device), timestep, generator,
+                    noise_sampler=noise_sampler, see_whole_sequence="whole")
+            recon, frames = to_nhwc(recon), to_nhwc(frames)
+            out_name = os.path.join(vol_dir, str(slice_ids[s]), f"t={timestep}")
+            vz.save_video(out_name + ".mp4", list(frames))
+            vz.heatmap_figure(x_np, recon, mask, out_name + ".png")
+            dice_data.append(M.dice_coeff(x_np, recon, mask))
+            slice_tag = f"{file_id}-{slice_ids[s]}"
+            if noise_kind == "simplex_randParam":
+                detection_A(args, em, sched, x_np, mask, slice_tag,
+                            root_dir=root_dir, total_avg=detection_avg,
+                            generator=generator)
+            detection_B(args, em, sched, x_np, mask, slice_tag,
+                        denoise_fn=("gauss" if noise_kind == "gauss"
+                                    else "octave"),
+                        root_dir=root_dir, total_avg=detection_avg,
+                        generator=generator)
+        print(f"volume {file_id} [{i + 1}/{n}] done, "
+              f"elapsed {time.time() - start:.0f}s", flush=True)
+    return dice_data
+
+
+def _auto_lambda_batch(img_size: int) -> int:
+    """graph_data's default lambda batch: 32 at 256^2, scaled inversely with
+    the pixel count and clamped to [8, 128]."""
+    scale = (256 * 256) / float(max(int(img_size), 1) ** 2)
+    return int(max(8, min(128, 32 * scale)))
+
+
+def graph_data(args=None, root_dir: str = ".", token: Optional[str] = None,
+               lambdas=None, max_volumes: int = 4,
+               use_checkpoint: bool = False, dense: bool = False,
+               lambda_batch: Optional[int] = None, slice_index: int = 1,
+               lambda_step: int = 1, mesh=None, device: DeviceLike = None):
+    """Per-lambda metric curves on slice `slice_index` of up to
+    `max_volumes` volumes: metrics/ARGS={n}/{volume}.csv (columns
+    timestep,Dice,SSIM,IOU,Precision,Recall,FPR) with its plot {volume}.png,
+    the pooled means metrics/args{n}-lambda.csv (t,dice,ssim,iou,auc) and
+    final-outputs/args{n}-dice-lambda.png.  The grid is every lambda in
+    [0, T) with `dense` (every `lambda_step`-th), else {50, 100, ...}.
+
+    The lambda grid rides the batch axis: `lambda_batch` copies of the slice
+    (default `_auto_lambda_batch` of the image size), each at its own
+    lambda, go through one masked `forward_backward_batched_lambda` chain of
+    max(lambdas) steps; the last chunk is padded with its first lambda.
+    Returns the pooled rows."""
+    _refuse_mesh(mesh)
+    args, em, sched = _eval_inputs(args, root_dir, token, use_checkpoint,
+                                   device)
+    device = _device_of(em)
+    noise_sampler = sampler_from_args(args)
+    if lambdas is None:
+        lambdas = (range(0, sched.num_timesteps, lambda_step) if dense
+                   else range(50, sched.num_timesteps, 50))
+    lambdas = [int(t) for t in lambdas]
+    if not lambdas:
+        print("graph_data: empty lambda grid (T too short for the 50-step "
+              "grid), nothing to sweep", flush=True)
+        return []
+    max_t = max(lambdas)
+    if lambda_batch is None:
+        img = args.get("img_size") or (256, 256)
+        img = img[0] if isinstance(img, (tuple, list)) else int(img)
+        lambda_batch = _auto_lambda_batch(img)
+    lambda_batch = min(lambda_batch, len(lambdas))
+    d_set = anomalous_dataset_from_args(root_dir, args)
+    n = min(len(d_set), max_volumes)
+    vol_dir = os.path.join(root_dir, "metrics", f"ARGS={args['arg_num']}")
+    os.makedirs(vol_dir, exist_ok=True)
+    generator = torch.Generator(device=device).manual_seed(11)
+    per_volume = []
+    for i in range(n):
+        sample = d_set[i]
+        img = sample["image"]
+        img = img if img.ndim == 4 else img[None]
+        msk = sample["mask"]
+        msk = msk if msk.ndim == 4 else msk[None]
+        s = min(slice_index, img.shape[0] - 1)
+        x0 = np.asarray(img[s:s + 1])
+        mask = np.asarray(msk[s:s + 1])
+        vol_name = os.path.basename(str(sample.get("filenames", i)))
+        x_rep = to_nchw(x0).to(device).repeat(lambda_batch, 1, 1, 1)
+        curves = {m: np.empty(len(lambdas)) for m in METRIC_NAMES}
+        for begin in range(0, len(lambdas), lambda_batch):
+            lam_chunk = lambdas[begin:begin + lambda_batch]
+            pad = lambda_batch - len(lam_chunk)
+            lamv = torch.tensor(lam_chunk + lam_chunk[:1] * pad,
+                                dtype=torch.int64, device=device)
+            with torch.inference_mode():
+                recon = to_nhwc(dmod.forward_backward_batched_lambda(
+                    em, sched, x_rep, lamv, max_t, generator,
+                    noise_sampler=noise_sampler))
+            got = len(lam_chunk)
+            batch_m = M.batched_anomaly_metrics(
+                np.broadcast_to(x0, (got,) + x0.shape[1:]), recon[:got],
+                np.broadcast_to(mask, (got,) + mask.shape[1:]))
+            for m in METRIC_NAMES:
+                curves[m][begin:begin + got] = batch_m[m]
+        with open(os.path.join(vol_dir, f"{vol_name}.csv"), "w") as f:
+            f.write("timestep,Dice,SSIM,IOU,Precision,Recall,FPR\n")
+            for j, t in enumerate(lambdas):
+                f.write(f"{t:04}," + ",".join(
+                    f"{curves[m][j]:.4f}" for m in METRIC_NAMES[:-1]) + "\n")
+        _per_volume_lambda_plot(lambdas, curves,
+                                os.path.join(vol_dir, f"{vol_name}.png"))
+        per_volume.append(curves)
+        print(f"[{i + 1}/{n}] {vol_name}: peak dice "
+              f"{curves['dice'].max():.4f} at lambda="
+              f"{lambdas[int(curves['dice'].argmax())]}", flush=True)
+
+    pooled = ("dice", "ssim", "iou", "auc")
+    rows = [{"t": t, **{m: float(np.mean([c[m][j] for c in per_volume]))
+                        for m in pooled}}
+            for j, t in enumerate(lambdas)]
+    csv_path = os.path.join(root_dir, "metrics",
+                            f"args{args['arg_num']}-lambda.csv")
+    with open(csv_path, "w") as f:
+        f.write("t," + ",".join(pooled) + "\n")
+        for r in rows:
+            f.write(f"{r['t']}," + ",".join(repr(r[m]) for m in pooled) + "\n")
+    graphs.graph_dice_comparison(
+        [csv_path], [f"args{args['arg_num']}"],
+        os.path.join(root_dir, "final-outputs",
+                     f"args{args['arg_num']}-dice-lambda.png"))
+    return rows
+
+
+def _per_volume_lambda_plot(lambdas, curves, path):
+    """Dice, IOU, precision and recall against lambda, y in [0, 1]."""
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+    for name, label in (("dice", "dice"), ("iou", "IOU"),
+                        ("precision", "precision"), ("recall", "recall")):
+        plt.plot(lambdas, curves[name], label=label)
+    plt.legend(loc="upper right")
+    plt.gca().set_ylim([0, 1])
+    plt.savefig(path)
+    plt.clf()
+
+
+def roc_data(tokens, labels=None, root_dir: str = ".",
+             t_distance: int = 200, max_volumes: Optional[int] = None,
+             use_checkpoint: bool = False, ce_token: Optional[str] = None,
+             args_override=None, mesh=None, device: DeviceLike = None):
+    """The pixel ROC of each checkpoint in `tokens` over its anomalous set
+    (lambda = `t_distance`, clamped to T; the raw square error as the
+    score): metrics/roc-comparison.csv (<label>_fpr, <label>_tpr columns,
+    downsampled) and final-outputs/roc-comparison.png; returns {label:
+    (fpr, tpr)}.  `args_override` entries are set in every checkpoint's
+    args (e.g. {"lesion_kind": "diffuse"})."""
+    if ce_token is not None:
+        raise NotImplementedError(
+            "the context-encoder curve (CE=) is not ported yet (ROADMAP.md, "
+            "Queue 1: tail, the context-encoder baseline)")
+    _refuse_mesh(mesh)
+    device = resolve_device(device)
+    labels = labels or [f"args{t}" for t in tokens]
+    curves = {}
+    for token, label in zip(tokens, labels):
+        args, em, sched = _load_eval_model(root_dir, token, use_checkpoint,
+                                           device)
+        for k, v in (args_override or {}).items():
+            args[k] = v
+        noise_sampler = sampler_from_args(args)
+        td = min(t_distance, sched.num_timesteps)
+        d_set = anomalous_dataset_from_args(root_dir, args)
+        n = len(d_set) if max_volumes is None else min(len(d_set), max_volumes)
+        generator = torch.Generator(device=device).manual_seed(13)
+        all_scores, all_labels = [], []
+        for i in range(n):
+            sample = d_set[i]
+            images = np.asarray(sample["image"])
+            masks = np.asarray(sample["mask"])
+            if images.ndim == 3:
+                images, masks = images[None], masks[None]
+            with torch.inference_mode():
+                recon = to_nhwc(dmod.forward_backward(
+                    em, sched, to_nchw(images).to(device), td, generator,
+                    noise_sampler=noise_sampler))
+            all_scores.append(((images - recon) ** 2).reshape(-1))
+            all_labels.append(masks.reshape(-1))
+        fpr, tpr, _ = M.roc_curve(np.concatenate(all_labels),
+                                  np.concatenate(all_scores))
+        curves[label] = (fpr, tpr)
+        print(f"{label}: AUC={M.auc(fpr, tpr):.4f}", flush=True)
+
+    graphs.make_roc_csv(curves, os.path.join(root_dir, "metrics",
+                                             "roc-comparison.csv"))
+    _roc_plot(curves, os.path.join(root_dir, "final-outputs",
+                                   "roc-comparison.png"))
+    return curves
+
+
+def _roc_plot(curves, path):
+    """The ROC curves with their AUCs in the legend, and the chance line."""
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+    plt.figure(dpi=150)
+    for label, (fpr, tpr) in curves.items():
+        plt.plot(fpr, tpr, label=f"{label} (AUC={M.auc(fpr, tpr):.3f})")
+    plt.plot([0, 1], [0, 1], "k--", alpha=0.3)
+    plt.xlabel("FPR")
+    plt.ylabel("TPR")
+    plt.legend()
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    plt.savefig(path, bbox_inches="tight")
+    plt.close("all")
+
+
+def _graph_options(rest) -> dict:
+    """graph's trailing tokens: DENSE, STEP=s, VOLS=n, LB=b."""
+    kw = {}
+    for a in rest:
+        if a == "DENSE":
+            kw["dense"] = True
+        elif a.startswith("STEP="):
+            kw["lambda_step"] = int(a[5:])
+        elif a.startswith("VOLS="):
+            kw["max_volumes"] = int(a[5:])
+        elif a.startswith("LB="):
+            kw["lambda_batch"] = int(a[3:])
+        else:
+            raise SystemExit(_USAGE)
+    return kw
+
+
+def _roc_options(rest):
+    """roc's trailing tokens: more checkpoints, CE=cfg, LESION=kind[:sev]."""
+    tokens, ce_token, override = [], None, None
+    for a in rest:
+        if a.startswith("CE="):
+            ce_token = a[3:]
+        elif a.startswith("LESION="):
+            kind, _, sev = a[7:].partition(":")
+            override = {"lesion_kind": kind}
+            if sev:
+                override["lesion_severity"] = float(sev)
+        else:
+            tokens.append(a)
+    return tokens, ce_token, override
+
+
+def main(argv=None, device: DeviceLike = None):
     argv = list(sys.argv[1:] if argv is None else argv)
     use_checkpoint = bool(argv) and argv[0] == "CHECKPOINT"
     if use_checkpoint:
         argv = argv[1:]
     if not argv:
         raise SystemExit(_USAGE)
-    token, vb = argv[0], None
-    for a in argv[1:]:
-        if a.startswith("VB="):
+    token, rest = argv[0], argv[1:]
+    mode = rest.pop(0) if rest and rest[0] in _MODES else "metrics"
+    if mode in ("methodA", "methodB", "validation") and rest:
+        raise SystemExit(_USAGE)
+    if mode in ("methodA", "methodB"):
+        args, em, sched = _load_eval_model(".", token, use_checkpoint, device)
+        sample = anomalous_dataset_from_args(".", args)[0]
+        x, mask = sample["image"][:1], sample["mask"][:1]
+        fid = os.path.basename(str(sample["filenames"]))
+        if mode == "methodA":
+            detection_A(args, em, sched, x, mask, fid)
+        else:
+            kind = "gauss" if str(args.get("noise_fn")) == "gauss" else "octave"
+            dice = detection_B(args, em, sched, x, mask, fid, denoise_fn=kind)
+            print("detection_B dice per lambda:", [round(d, 4) for d in dice])
+    elif mode == "validation":
+        anomalous_validation(token=token, use_checkpoint=use_checkpoint,
+                             device=device)
+    elif mode == "graph":
+        graph_data(token=token, use_checkpoint=use_checkpoint, device=device,
+                   **_graph_options(rest))
+    elif mode == "roc":
+        tokens, ce_token, override = _roc_options(rest)
+        roc_data([token] + tokens, use_checkpoint=use_checkpoint,
+                 ce_token=ce_token, args_override=override, device=device)
+    else:
+        vb = None
+        for a in rest:
+            if not a.startswith("VB="):
+                raise SystemExit(_USAGE)
             vb = int(a[3:])
-        elif a in ("validation", "graph", "roc", "methodA", "methodB"):
-            raise NotImplementedError(
-                f"detect mode {a!r} is not ported yet (ROADMAP.md, Queue 1: "
-                "detection sweeps)")
-        elif a != "metrics":
-            raise SystemExit(_USAGE)
-    anomalous_metric_calculation(token=token, use_checkpoint=use_checkpoint,
-                                 volume_batch=vb)
+        anomalous_metric_calculation(token=token, use_checkpoint=use_checkpoint,
+                                     volume_batch=vb, device=device)
 
 
 if __name__ == "__main__":

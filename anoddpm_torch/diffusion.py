@@ -1,19 +1,25 @@
 """The diffusion process: q/p distributions, the partial forward-backward
-primitive, and the training objective with its likelihood terms, as plain
-functions on tensors.
+primitive with its frame capture, the batched-lambda chain, DDIM, and the
+training objective with its likelihood terms, as plain functions on tensors.
 
-Counterpart of `anoddpm_tpu/diffusion.py:35-217` (detection) and
+Counterpart of `anoddpm_tpu/diffusion.py:35-354` (detection, DDIM) and
 `:361-502` (losses, VLB, timestep sampling).  Every function takes the
 `Schedule` and a `model_fn(x, t) -> eps`; tensors are NCHW and timesteps a
-(B,) int64 tensor.  The reverse chain and the VLB sweep are Python loops
-with no host syncs; their noise comes from a sampler and an explicit
-`torch.Generator`.
+(B,) int64 tensor.  The chains and the VLB sweep are Python loops with no
+host syncs; their noise comes from a sampler and an explicit
+`torch.Generator`, drawn in the order the steps run: the forward jump (or
+the forward chain's steps) first, then one field per reverse step.
+
+Frame capture: a chain given a list as `frames` appends every x it
+produces, on the device; `forward_backward_sequence` stacks them once into
+the (F, B, C, H, W) tensor that the JAX `forward_backward(...,
+see_whole_sequence=...)` returns beside x.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, NamedTuple, Optional
+from typing import Callable, Dict, List, NamedTuple, Optional
 
 import torch
 
@@ -38,6 +44,13 @@ def sample_q(sched: Schedule, x_0: torch.Tensor, t: torch.Tensor,
     """q(x_t | x_0) one-jump sample."""
     return (extract(sched.sqrt_alphas_cumprod, t, x_0.dim()) * x_0
             + extract(sched.sqrt_one_minus_alphas_cumprod, t, x_0.dim()) * noise)
+
+
+def sample_q_gradual(sched: Schedule, x_t: torch.Tensor, t: torch.Tensor,
+                     noise: torch.Tensor) -> torch.Tensor:
+    """q(x_t | x_{t-1}) single-step sample."""
+    return (extract(sched.sqrt_alphas, t, x_t.dim()) * x_t
+            + extract(sched.sqrt_betas, t, x_t.dim()) * noise)
 
 
 def q_mean_variance(sched: Schedule, x_0: torch.Tensor, t: torch.Tensor):
@@ -104,34 +117,212 @@ def sample_p(model_fn: ModelFn, sched: Schedule, x_t: torch.Tensor,
     return out.mean + nonzero * torch.exp(0.5 * out.log_variance) * noise, out.pred_x_0
 
 
+def _full(x: torch.Tensor, t: int) -> torch.Tensor:
+    return torch.full((x.shape[0],), t, dtype=torch.int64, device=x.device)
+
+
 def denoise_chain(model_fn: ModelFn, sched: Schedule, x: torch.Tensor,
                   t_distance: int, generator: torch.Generator,
-                  noise_sampler: NoiseSampler = gaussian_noise) -> torch.Tensor:
-    """Reverse chain t = t_distance-1 .. 0."""
+                  noise_sampler: NoiseSampler = gaussian_noise,
+                  frames: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
+    """Reverse chain t = t_distance-1 .. 0; appends each step's x to
+    `frames` when given."""
     for t in range(t_distance - 1, -1, -1):
-        t_batch = torch.full((x.shape[0],), t, dtype=torch.int64, device=x.device)
-        x, _ = sample_p(model_fn, sched, x, t_batch, generator, noise_sampler)
+        x, _ = sample_p(model_fn, sched, x, _full(x, t), generator,
+                        noise_sampler)
+        if frames is not None:
+            frames.append(x)
+    return x
+
+
+def diffuse_gradual_chain(sched: Schedule, x: torch.Tensor, t_distance: int,
+                          generator: torch.Generator,
+                          noise_sampler: NoiseSampler = gaussian_noise,
+                          frames: Optional[List[torch.Tensor]] = None
+                          ) -> torch.Tensor:
+    """Forward chain of single q-steps t = 0 .. t_distance-1, one noise field
+    per step ("whole" mode); appends each step's x to `frames` when
+    given."""
+    for t in range(t_distance):
+        t_batch = _full(x, t)
+        x = sample_q_gradual(sched, x, t_batch,
+                             noise_sampler(x.shape, t_batch, generator))
+        if frames is not None:
+            frames.append(x)
     return x
 
 
 def forward_backward(model_fn: ModelFn, sched: Schedule, x: torch.Tensor,
                      t_distance: Optional[int], generator: torch.Generator,
                      noise_sampler: NoiseSampler = gaussian_noise,
-                     denoise_sampler: Optional[NoiseSampler] = None) -> torch.Tensor:
+                     denoise_sampler: Optional[NoiseSampler] = None,
+                     gradual_forward: bool = False,
+                     frames: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
     """The anomaly-detection primitive, partial diffusion: one q-jump of x_0
-    to t_distance - 1 with `noise_sampler`, then t_distance reverse steps
-    with `denoise_sampler` (by default the same).  Returns x_recon."""
+    to t_distance - 1 with `noise_sampler` (or, with `gradual_forward`,
+    t_distance single q-steps), then t_distance reverse steps with
+    `denoise_sampler` (by default the same).  Returns x_recon; appends the
+    forward frames (the jump's x_t alone, or every forward step) and every
+    reverse step to `frames` when given."""
     if t_distance == 0:
         return x
     if t_distance is None:
         t_distance = sched.num_timesteps
     if denoise_sampler is None:
         denoise_sampler = noise_sampler
-    t_batch = torch.full((x.shape[0],), t_distance - 1, dtype=torch.int64,
-                         device=x.device)
-    x_t = sample_q(sched, x, t_batch, noise_sampler(x.shape, t_batch, generator))
+    if gradual_forward:
+        x_t = diffuse_gradual_chain(sched, x, t_distance, generator,
+                                    noise_sampler, frames)
+    else:
+        t_batch = _full(x, t_distance - 1)
+        x_t = sample_q(sched, x, t_batch,
+                       noise_sampler(x.shape, t_batch, generator))
+        if frames is not None:
+            frames.append(x_t)
     return denoise_chain(model_fn, sched, x_t, t_distance, generator,
-                         denoise_sampler)
+                         denoise_sampler, frames)
+
+
+def forward_backward_sequence(model_fn: ModelFn, sched: Schedule,
+                              x: torch.Tensor, t_distance: Optional[int],
+                              generator: torch.Generator,
+                              noise_sampler: NoiseSampler = gaussian_noise,
+                              denoise_sampler: Optional[NoiseSampler] = None,
+                              see_whole_sequence: str = "half"):
+    """`forward_backward` with its frames: (x_recon, frames), frames an
+    (F, B, C, H, W) tensor on x's device, or None when t_distance is 0.
+    The counterpart of the JAX `forward_backward(...,
+    see_whole_sequence=...)` and its `(x, frames)`: "half" gives [x_lambda,
+    the reverse chain], "whole" runs the gradual forward chain and gives
+    [the forward chain, the reverse chain]."""
+    if see_whole_sequence not in ("half", "whole"):
+        raise ValueError(f"see_whole_sequence must be 'half' or 'whole', got "
+                         f"{see_whole_sequence!r}")
+    frames: List[torch.Tensor] = []
+    x_recon = forward_backward(model_fn, sched, x, t_distance, generator,
+                               noise_sampler, denoise_sampler,
+                               gradual_forward=see_whole_sequence == "whole",
+                               frames=frames)
+    return x_recon, (torch.stack(frames) if frames else None)
+
+
+def forward_backward_batched_lambda(model_fn: ModelFn, sched: Schedule,
+                                    x: torch.Tensor, lam: torch.Tensor,
+                                    max_t: int, generator: torch.Generator,
+                                    noise_sampler: NoiseSampler = gaussian_noise,
+                                    denoise_sampler: Optional[NoiseSampler] = None
+                                    ) -> torch.Tensor:
+    """Partial diffusion with a per-sample depth: sample i is q-jumped to
+    lam[i] - 1 and then updated only at the reverse steps t < lam[i] of one
+    masked chain of `max_t` steps; lam[i] == 0 returns sample i unchanged.
+
+    The noise is drawn in `forward_backward`'s order (the q-jump field at
+    the per-sample t, then one field per reverse step), so with every
+    lam[i] == max_t the result is the tensor that
+    `forward_backward(t_distance=max_t)` gives from the same generator
+    state."""
+    if denoise_sampler is None:
+        denoise_sampler = noise_sampler
+    lam = torch.as_tensor(lam, dtype=torch.int64, device=x.device)
+    bcast = (x.shape[0],) + (1,) * (x.dim() - 1)
+    t_corrupt = torch.clamp(lam - 1, min=0)
+    x_corrupt = sample_q(sched, x, t_corrupt,
+                         noise_sampler(x.shape, t_corrupt, generator))
+    xc = torch.where((lam > 0).view(bcast), x_corrupt, x)
+    for t in range(max_t - 1, -1, -1):
+        x_next, _ = sample_p(model_fn, sched, xc, _full(x, t), generator,
+                             denoise_sampler)
+        xc = torch.where((t < lam).view(bcast), x_next, xc)
+    return xc
+
+
+# DDIM (Song et al., arXiv:2010.02502): the lambda-step reverse chain
+# replaced by S strided steps (anoddpm_tpu/diffusion.py:267-354).
+
+def ddim_step(sched: Schedule, x_t: torch.Tensor, t: torch.Tensor,
+              t_prev: torch.Tensor, eps: torch.Tensor, eta: float = 0.0,
+              noise: Optional[torch.Tensor] = None):
+    """One DDIM update x_t -> x_{t_prev} from the model's eps; t_prev == -1
+    is the terminal step to x_0 (alpha_bar_prev = 1).  Returns (x_prev,
+    pred_x0)."""
+    n = x_t.dim()
+    acp_t = extract(sched.alphas_cumprod, t, n)
+    acp_prev = torch.where(
+        (t_prev < 0).reshape(t_prev.shape + (1,) * (n - 1)),
+        torch.ones((), dtype=acp_t.dtype, device=acp_t.device),
+        extract(sched.alphas_cumprod, torch.clamp(t_prev, min=0), n))
+    pred_x0 = torch.clamp((x_t - torch.sqrt(1.0 - acp_t) * eps)
+                          / torch.sqrt(acp_t), -1.0, 1.0)
+    # eps re-derived from the clamped x0, so that the update stays consistent
+    eps_hat = (x_t - torch.sqrt(acp_t) * pred_x0) / torch.sqrt(1.0 - acp_t)
+    sigma = (eta * torch.sqrt((1.0 - acp_prev) / (1.0 - acp_t))
+             * torch.sqrt(1.0 - acp_t / acp_prev))
+    dir_xt = torch.sqrt(torch.clamp(1.0 - acp_prev - sigma ** 2, min=0.0)) * eps_hat
+    x_prev = torch.sqrt(acp_prev) * pred_x0 + dir_xt
+    if noise is not None:
+        x_prev = x_prev + sigma * noise
+    return x_prev, pred_x0
+
+
+def ddim_timesteps(t_distance: int, num_steps: int) -> torch.Tensor:
+    """The descending strided subsequence of [0, t_distance): S evenly
+    spaced timesteps ending at 0, as int64 on the host.
+
+    The grid is the JAX package's `jnp.linspace(0, t_distance - 1, S)` as
+    XLA evaluates it in fp32 (the step (t_distance - 1) * (1 / div) rounded
+    first, then times i; the last value is the stop itself), rounded half
+    to even as `jnp.round` and `torch.round` both do.  Exact arithmetic
+    would round some grid values to the other side of a half (13 * 5/10 =
+    6.5 -> 6, where XLA's 6.5000005 -> 7)."""
+    num_steps = min(num_steps, t_distance)
+    div = num_steps - 1
+    if div < 1:
+        return torch.zeros((max(num_steps, 0),), dtype=torch.int64)
+    f32 = lambda v: torch.tensor(v, dtype=torch.float32)
+    stop = f32(float(t_distance - 1))
+    step = stop * (f32(1.0) / f32(float(div)))
+    grid = torch.cat([step * torch.arange(div, dtype=torch.float32),
+                      stop.view(1)])
+    return torch.round(grid).to(torch.int64).flip(0)
+
+
+def ddim_chain(model_fn: ModelFn, sched: Schedule, x: torch.Tensor,
+               t_distance: int, num_steps: int, generator: torch.Generator,
+               eta: float = 0.0, noise_sampler: NoiseSampler = gaussian_noise,
+               frames: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
+    """Strided reverse chain x_{t_distance-1} -> x_0 in `num_steps` model
+    evaluations; a noise field is drawn at each step only when eta > 0.
+    Appends each step's x to `frames` when given."""
+    ts = ddim_timesteps(t_distance, num_steps).tolist()
+    for t, t_prev in zip(ts, ts[1:] + [-1]):
+        t_batch = _full(x, t)
+        eps = model_fn(x, t_batch)
+        noise = noise_sampler(x.shape, t_batch, generator) if eta > 0 else None
+        x, _ = ddim_step(sched, x, t_batch, _full(x, t_prev), eps, eta, noise)
+        if frames is not None:
+            frames.append(x)
+    return x
+
+
+def forward_backward_ddim(model_fn: ModelFn, sched: Schedule, x: torch.Tensor,
+                          t_distance: int, num_steps: int,
+                          generator: torch.Generator,
+                          noise_sampler: NoiseSampler = gaussian_noise,
+                          eta: float = 0.0,
+                          frames: Optional[List[torch.Tensor]] = None
+                          ) -> torch.Tensor:
+    """Partial diffusion with a DDIM reverse chain: one q-jump to
+    t_distance - 1, then `num_steps` strided steps.  Returns x_recon;
+    appends x_t and every step's x to `frames` when given (the JAX
+    `see_whole_sequence` frames)."""
+    if t_distance == 0:
+        return x
+    t_batch = _full(x, t_distance - 1)
+    x_t = sample_q(sched, x, t_batch, noise_sampler(x.shape, t_batch, generator))
+    if frames is not None:
+        frames.append(x_t)
+    return ddim_chain(model_fn, sched, x_t, t_distance, num_steps, generator,
+                      eta, noise_sampler, frames)
 
 
 # Likelihoods and losses (anoddpm_tpu/diffusion.py:361-502)

@@ -53,6 +53,17 @@ def timestep_embedding(t: torch.Tensor, dim: int) -> torch.Tensor:
     return torch.cat([torch.sin(angles), torch.cos(angles)], dim=-1)
 
 
+# The standard deviation of a unit normal truncated at +-2.
+_TRUNC_STD = 0.87962566103423978
+
+
+def lecun_normal_(weight: torch.Tensor, fan_in: int) -> torch.Tensor:
+    """Flax's default kernel init, `lecun_normal`, in place: a normal
+    truncated at +-2 standard deviations and scaled to variance 1/fan_in."""
+    s = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+    return nn.init.trunc_normal_(weight, std=s, a=-2.0 * s, b=2.0 * s)
+
+
 class Conv(nn.Module):
     """Conv2d with 'SAME' padding whose input and weight are cast to the
     compute dtype (flax `nn.Conv(dtype=...)` with fp32 params)."""
@@ -65,8 +76,8 @@ class Conv(nn.Module):
         self.dtype = dtype
         if zero:
             nn.init.zeros_(self.weight)
-        else:  # fan-in normal, close to flax's lecun-normal default
-            nn.init.normal_(self.weight, std=1.0 / math.sqrt(cin * kernel * kernel))
+        else:
+            lecun_normal_(self.weight, cin * kernel * kernel)
 
     def forward(self, x):
         w = self.weight
@@ -86,7 +97,7 @@ class Dense(nn.Module):
         if zero:
             nn.init.zeros_(self.weight)
         else:
-            nn.init.normal_(self.weight, std=1.0 / math.sqrt(cin))
+            lecun_normal_(self.weight, cin)
 
     def forward(self, x):
         return F.linear(x.to(self.dtype), self.weight.to(self.dtype),

@@ -5,9 +5,11 @@ Counterpart of `anoddpm_tpu/train.py:40-259`: the positional argument
 selects ``configs/args{N}.json``; the loop keeps the reference recipe
 (100 images an epoch unless `iters_per_epoch`, AdamW after a global-norm
 clip of 1.0, EMA 0.9999, t < min(sample_distance, T) with train_start,
-the metrics JSONL every 10 epochs, the VLB sweep printed every 200,
-checkpoints every `checkpoint_every` epochs, then the final save, the
-purge of the periodic checkpoints and the test-set suite).  Batches reach
+the metrics JSONL every 10 epochs, with `save_imgs` a snapshot every 50
+epochs (and a one-step EMA sample grid every 100), the VLB sweep printed
+every 200, checkpoints every `checkpoint_every` epochs, with `save_vids` a
+"half"-sequence video every 500, then the final save, the purge of the
+periodic checkpoints and the test-set suite).  Batches reach
 the card through a pinned-memory prefetch thread.  It runs on the card
 unless `device="cpu"`, and raises without one.
 """
@@ -23,10 +25,11 @@ import torch
 
 from . import diffusion as dmod
 from . import evaluation as ev
+from . import visualize as vz
 from .checkpoint import load_checkpoint, purge_checkpoints, save_checkpoint
 from .config import load_args, resolve_in_channels
 from .data.datasets import dataset_from_args
-from .data.pipeline import batch_iterator, prefetch_to_device
+from .data.pipeline import batch_iterator, prefetch_to_device, to_nhwc
 from .device import DeviceLike, resolve_device
 from .models.unet import unet_from_args
 from .observe import MetricsLogger, ProfileWindow, StepTimer
@@ -40,16 +43,33 @@ _USAGE = ("usage: python -m anoddpm_torch.train [RESUME_RECENT|RESUME_FINAL] "
 
 
 def _refuse_unported(args) -> None:
-    later = "is not ported yet (ROADMAP.md, Queue 1: {})"
-    if args.get("save_imgs"):
-        raise NotImplementedError("save_imgs " + later.format(
-            "tail, training snapshots with visualize and figures"))
-    if args.get("save_vids"):
-        raise NotImplementedError("save_vids " + later.format(
-            "tail, videos with visualize and figures"))
     if int(args.get("train_substeps") or 1) > 1:
-        raise NotImplementedError("train_substeps > 1 " + later.format(
-            "training, rest"))
+        raise NotImplementedError("train_substeps > 1 is not ported yet "
+                                  "(ROADMAP.md, Queue 1: training, rest)")
+
+
+def save_snapshot(path: str, state: TrainState, sched, noise_sampler, x,
+                  epoch: int, max_t: int, generator: torch.Generator) -> None:
+    """The every-50-epochs training image: at epochs divisible by 100 the
+    real / sample / pred_x0 grid of one EMA reverse step from a random t
+    (the q-jump with the training noise), else the real / x_t / eps
+    estimate / square error grid of the training model at t < max_t."""
+    model = state.model
+    was_training = model.training
+    model.eval()
+    with torch.inference_mode():
+        if epoch % 100 == 0:
+            t = dmod.sample_timesteps(generator, x.shape[0], sched.num_timesteps)
+            x_t = dmod.sample_q(sched, x, t, noise_sampler(x.shape, t, generator))
+            sample, pred_x0 = dmod.sample_p(state.ema, sched, x_t, t, generator)
+            vz.sample_snapshot(path, to_nhwc(x), to_nhwc(sample),
+                               to_nhwc(pred_x0), epoch)
+        else:
+            t = dmod.sample_timesteps(generator, x.shape[0], max_t)
+            x_t = dmod.sample_q(sched, x, t, noise_sampler(x.shape, t, generator))
+            vz.training_snapshot(path, to_nhwc(x), to_nhwc(x_t),
+                                 to_nhwc(model(x_t, t)), epoch)
+    model.train(was_training)
 
 
 def new_train_state(args, device: torch.device) -> TrainState:
@@ -131,11 +151,16 @@ def train(args, root_dir: str = ".", resume: Optional[str] = None,
         for epoch in range(start_epoch, epochs + 1):
             prof.start_epoch(epoch - start_epoch)
             epoch_losses = []
-            for _ in range(iters_per_epoch):
+            for i in range(iters_per_epoch):
                 x = next(loader)["image"]
                 metrics = train_step(state, x, generator)
                 timer.tick()
                 epoch_losses.append(metrics["loss"])
+                if epoch % 50 == 0 and i == 0 and args.get("save_imgs"):
+                    save_snapshot(
+                        f"{root_dir}/diffusion-training-images/"
+                        f"ARGS={args['arg_num']}/EPOCH={epoch}.png", state,
+                        sched, noise_sampler, x, epoch, max_t, generator)
             prof.end_epoch(epoch - start_epoch)
             losses.append(float(torch.stack(epoch_losses).mean()))
             if epoch % 10 == 0:
@@ -168,6 +193,18 @@ def train(args, root_dir: str = ".", resume: Optional[str] = None,
                 save_checkpoint(root_dir, args, epoch, state.model.state_dict(),
                                 state.ema.state_dict(), optimizer_state(state),
                                 loss=losses[-1])
+
+            if (epoch % 500 == 0 and args.get("save_vids")
+                    and epoch > start_epoch):
+                lam = int(args["sample_distance"]) // (2 if epoch % 1000 == 0 else 4)
+                with torch.inference_mode():
+                    _, frames = dmod.forward_backward_sequence(
+                        state.ema, sched, x, lam, generator,
+                        noise_sampler=noise_sampler, see_whole_sequence="half")
+                vz.save_video(f"{root_dir}/diffusion-videos/ARGS={args['arg_num']}/"
+                              f"sample-EPOCH={epoch}.mp4",
+                              list(to_nhwc(frames)),
+                              row_size=min(8, batch_size))
     finally:
         # the profiler is process-wide: always close the trace, the log and
         # the prefetch thread, even when the epoch loop unwinds on an error
@@ -180,7 +217,8 @@ def train(args, root_dir: str = ".", resume: Optional[str] = None,
 
     if not args.get("skip_test_eval"):
         ev.testing(test_loader, state.ema, sched, args,
-                   noise_sampler=noise_sampler, root_dir=root_dir)
+                   noise_sampler=noise_sampler, root_dir=root_dir,
+                   save_videos=bool(args.get("save_vids")))
     return state
 
 

@@ -7,17 +7,24 @@ run from the root of a checkout, on a machine with a CUDA card, `nvcc` and
 PyTorch built for CUDA.  Phases, each of which fails the run when it fails:
 
 1. the card's name, power limit (`nvidia-smi`) and TF32 flags;
-2. build every kernel of the detection path from `anoddpm_torch/csrc/`;
+2. build every kernel of the detection path from `anoddpm_torch/csrc/`, and
+   find which optional writers this machine has (matplotlib for plots,
+   imageio for videos): a missing one is replaced by a stub that writes
+   nothing, and the run prints which and why;
 3. kernel K1 (simplex octave field) against its plain PyTorch version at the
    main path's shape: 4 fields of 256^2, 6 octaves, per-field t; and its
-   registers, spills and resident blocks as built;
+   registers, spills and resident blocks as built; then at the detection
+   suite's shapes: frequency 2^1 .. 2^7 at 1, 4 and 32 fields, each with
+   its device-only time and issue bound;
 4. kernel K2 (GroupNorm(32)+SiLU), with its mean and rstd, against its
    plain version at every (C, H, W) that args256syn128's UNet gives it at
    batch 4, in fp32 and bf16, with `F.silu(F.group_norm(...))` timed as the
    library yardstick;
    each kernel's time back to back (host gaps included), its device-only
    time (calls captured in a CUDA graph and replayed) and its host
-   microseconds per call at a small shape;
+   microseconds per call at a small shape; then at all 85 sites at the
+   suite's batches 1, 19 and 32, device-only per UNet forward against the
+   bytes bound;
 5. kernel K2b (K2's gradient) against its plain version at every (C, H, W)
    of those sites at the training batch of 8, in fp32 and bf16, twice
    (the two runs must agree bit for bit), with each shape's plan and share
@@ -33,13 +40,24 @@ PyTorch built for CUDA.  Phases, each of which fails the run when it fails:
    checkpoint and run through `detect.anomalous_metric_calculation` on 2
    synthetic volumes, with the kernels' launch counts read around that
    call;
-9. the training path: `train.train` on args256syn128 at full width (batch
+9. the detection suite at full width on the same weights: DDIM-15 at eta 1
+   and DDIM-25 at eta 0 through `anomalous_metric_calculation` on one
+   volume group (exact launch counts, a steady group timed, two eta = 0
+   runs from one seed equal), and `graph_data` over lambda = 5 .. 160 at
+   the lambda batch of 32 (exact launch counts, 32 finite CSV rows; a
+   chunk at lambda = 160 equal to `forward_backward` from one seed);
+10. the training path: `train.train` on args256syn128 at full width (batch
    8, bf16, simplex noise) from seeded weights, with only EPOCHS,
    iters_per_epoch and checkpoint_every cut: 12 steps through the epoch-0
    VLB sweep, the periodic checkpoint and the final one, then a resume
    with RESUME_RECENT for one more epoch; the launch counts are read
    around each call, the restored AdamW state is compared with the saved
-   one, and a steady window of train steps is timed.
+   one, and a steady window of train steps is timed; then `roc_data` on
+   one volume at lambda 200 from that run's final checkpoint;
+11. the suite at 32^2 (T 200): methods A and B, `detection_A_fixedT`,
+   `anomalous_validation`, and `train.train` with save_imgs and save_vids
+   through 500 epochs and the test-set suite with its videos, each file
+   under the name the JAX package gives it.
 
 The line before the last is the JSON kernel table; the last line is
 {"ok": true, "device": {...}}.  Exits non-zero on any failure, and when
@@ -84,6 +102,16 @@ K2B_TOL = 1e-4              # K2b vs plain: dx atol = rtol (fp32), bf16 1 ulp;
 K2B_HOST_SHAPE = (8, 512, 8, 8)
 SMALL_TRAIN_TOL = 1e-4      # small fp32 train step, card vs CPU
 TRAIN_CUTS = {"EPOCHS": 2, "iters_per_epoch": 4, "checkpoint_every": 2}
+# The detection suite's shapes: K1 at methods A / A_fixedT's frequencies
+# 2^1..2^7 for 1 field (methods, validation), 4 (a volume group) and 32 (a
+# lambda chunk: q-jump t = lambda - 1); K2 at batch 1, 19 and 32.
+K1_FREQUENCIES = [float(2 ** i) for i in range(1, 8)]
+K1_FIELD_T = {1: [249.0], 4: [0.0, 57.0, 123.0, 199.0],
+              32: [float(5 * i + 4) for i in range(32)]}
+K2_BATCHES = (1, 19, 32)
+DDIM_PROTOCOLS = ((15, 1.0), (25, 0.0))     # (steps, eta)
+GRAPH_LAMBDAS = list(range(5, 161, 5))      # 32 lambdas, one chunk at 256^2
+SMALL_T = 200                               # the 32^2 suite's schedule length
 STEADY_STEPS = 10           # timed train steps at full width
 # K1's instructions by class for one pixel: the least the function needs in
 # the form the kernel computes it (csrc/simplex3_octave_field.cu), every
@@ -719,6 +747,334 @@ def main_path(model, args, k2_per_forward):
     return k1, k2, k2b
 
 
+def probe_writers():
+    """Which optional writers this machine has: matplotlib (the graph and
+    ROC plots), pandas (nothing of the port needs it), imageio and an mp4
+    plugin for it (videos; without one they are GIFs).  A writer whose
+    package is missing is replaced by a stub that writes nothing, and the
+    run says so: the device work does not need them."""
+    import importlib.util
+    have = {m: importlib.util.find_spec(m) is not None
+            for m in ("matplotlib", "pandas", "imageio", "imageio_ffmpeg", "av")}
+    log(f"packages: {have}")
+    left_out = []
+    if not have["imageio"]:
+        from anoddpm_torch import visualize
+        visualize.save_video = lambda path, frames, row_size=-1, fps=20: path
+        left_out.append("videos (visualize.save_video): imageio is not installed")
+    if not have["matplotlib"]:
+        from anoddpm_torch import detect, graphs
+        detect._per_volume_lambda_plot = lambda *a, **k: None
+        detect._roc_plot = lambda *a, **k: None
+        graphs.graph_dice_comparison = lambda *a, **k: None
+        left_out.append("plots (graph's per-volume and comparison plots, the "
+                        "ROC figure): matplotlib is not installed")
+    for what in left_out:
+        log(f"left out: {what}")
+    return {"videos": have["imageio"], "plots": have["matplotlib"],
+            "mp4": have["imageio"] and (have["imageio_ffmpeg"] or have["av"])}
+
+
+def check_k1_shapes():
+    """K1 against its plain version at the suite's shapes: frequency 2^1 ..
+    2^7 (6 octaves, persistence 0.8) at n = 1, 4 and 32 fields of 256^2,
+    the standing tolerance; device-only ms and the issue bound of each."""
+    from anoddpm_torch.ops import simplex as sx
+    hw = (256, 256)
+    gen = torch.Generator(device=DEVICE).manual_seed(14)
+    worst, table = 0.0, {}
+    for freq in K1_FREQUENCIES:
+        for n, times in K1_FIELD_T.items():
+            seeds = torch.randint(0, 1 << 32, (n,), generator=gen, device=DEVICE,
+                                  dtype=torch.int64)
+            t = torch.tensor(times, device=DEVICE)
+            field = lambda: sx.batched_fractal3_fixed_t(seeds, t, hw, 6, 0.8, freq)
+            got = field()
+            want = sx._fractal3_fixed_t_plain(seeds, t, hw, 6, 0.8, freq)
+            diff = (got - want).abs()
+            within = (diff <= K1_TOL).float().mean().item()
+            worst = max(worst, diff.max().item())
+            require(torch.isfinite(got).all(), f"K1 f={freq} n={n}: non-finite")
+            require(within >= 0.997, f"K1 f={freq} n={n}: only {within:.5f} of "
+                    f"pixels within {K1_TOL}")
+            dev = graph_ms(field, reps=10)
+            count = k1_instructions(t, hw, 6, freq)
+            bound = max(4 * n * hw[0] * hw[1] / HBM_BYTES_PER_S * 1e3,
+                        issue_bound_ms(count))
+            table[(freq, n)] = (dev, bound)
+            log(f"K1 frequency {freq:g} n={n} 256x256: mismatch fraction "
+                f"{1 - within:.3e} (|d|>{K1_TOL}), max|d| {diff.max().item():.3e}; "
+                f"{dev:.4f} ms device-only, bound {bound:.4f} ms "
+                f"({bound / dev:.1%} of it)")
+    return worst, table
+
+
+def check_k2_batches(sites):
+    """K2 against its plain version at every K2 site of one UNet forward
+    (each at its own dtype, bf16 at all but the output norm) at the batches
+    the suite launches: 1 (methods A/B, validation), 19 and 32 (graph's
+    lambda batch); device-only ms per forward against the bytes bound."""
+    from anoddpm_torch.ops import group_norm_silu as gn
+    gen = torch.Generator(device=DEVICE).manual_seed(15)
+    worst, table = 0.0, {}
+    for n in K2_BATCHES:
+        timing = {}
+        for shape, dtype in sorted(set(sites), key=lambda s: (s[0][1], s[0][2], str(s[1]))):
+            c = shape[1]
+            x = (torch.randn((n,) + shape[1:], generator=gen, device=DEVICE) * 1.7
+                 + 0.4).to(dtype)
+            gamma = 1 + 0.1 * torch.randn(c, generator=gen, device=DEVICE)
+            beta = 0.1 * torch.randn(c, generator=gen, device=DEVICE)
+            got, mean, rstd = gn.group_norm_silu_with_stats(x, gamma, beta)
+            want, wmean, wrstd = gn._plain(x, gamma, beta, 1e-5)
+            got, want = got.float(), want.float()
+            diff = (got - want).abs()
+            stats_err = max((mean - wmean).abs().max().item(),
+                            (rstd - wrstd).abs().max().item())
+            if dtype == torch.float32:
+                ok = (diff <= K2_TOL + K2_TOL * want.abs()).all().item()
+            else:
+                ok = (diff <= torch.clamp(bf16_ulp(want), min=K2_TOL)).all().item()
+            err = diff.max().item()
+            worst = max(worst, err)
+            require(ok and stats_err <= K2_STATS_TOL,
+                    f"K2 N={n} {shape[1:]} {dtype}: max|d| {err:.3e}, "
+                    f"mean/rstd {stats_err:.3e}")
+            dev = graph_ms(lambda: gn.group_norm_silu(x, gamma, beta), reps=10)
+            bound = 2 * x.numel() * x.element_size() / HBM_BYTES_PER_S * 1e3
+            timing[(shape, dtype)] = (dev, bound)
+            del x, got, want, diff
+        dev = sum(timing[s][0] for s in sites)
+        bound = sum(timing[s][1] for s in sites)
+        table[n] = (dev, bound)
+        log(f"K2 at N={n}, all {len(sites)} sites in tolerance (worst max|d| "
+            f"{worst:.3e}): {dev:.3f} ms device-only per UNet forward, bound "
+            f"{bound:.3f} ms ({bound / dev:.1%} of it)")
+    return worst, table
+
+
+def ddim_path(model, args, k2_per_forward):
+    """`anomalous_metric_calculation` with sampler=ddim on one volume group
+    (4 slices, lambda 200): DDIM-15 at eta 1 (the flagship_ddim15_eta1
+    protocol) and DDIM-25 at eta 0, exact launch counts, then a steady group
+    timed, and two eta = 0 runs from one seed against each other."""
+    from anoddpm_torch import detect, diffusion
+    from anoddpm_torch.config import defaultdict_from_json
+    from anoddpm_torch.data.datasets import anomalous_dataset_from_args
+    from anoddpm_torch.ops.noise import sampler_from_args
+    from anoddpm_torch.schedule import schedule_from_args
+    sched = schedule_from_args(args).to(DEVICE)
+    sampler = sampler_from_args(args)
+    sample = anomalous_dataset_from_args(ROOT, args)[0]
+    total = [0, 0, 0]
+    for steps, eta in DDIM_PROTOCOLS:
+        dargs = defaultdict_from_json({**args, "sampler": "ddim",
+                                       "ddim_steps": steps, "ddim_eta": eta})
+        with tempfile.TemporaryDirectory() as root:
+            reset_launches()
+            summary = detect.anomalous_metric_calculation(
+                dargs, root_dir=root, em=model, sched=sched, max_volumes=1,
+                device=DEVICE)
+            torch.cuda.synchronize()
+            counts = torch_launches()
+        want = (1 + (steps if eta > 0 else 0), k2_per_forward * steps, 0)
+        log(f"DDIM-{steps} eta={eta:g}: launches K1 {counts[0]}, K2 {counts[1]}, "
+            f"K2b {counts[2]} (expected {want}); AUC {summary['auc']:.4f}")
+        require(tuple(counts) == want, f"DDIM-{steps}: launches {counts} != {want}")
+        require(all(math.isfinite(summary[k]) for k in detect.METRIC_NAMES),
+                f"DDIM-{steps}: non-finite metrics {summary}")
+        total = [a + b for a, b in zip(total, counts)]
+
+        def fb(x, g):
+            return diffusion.forward_backward_ddim(model, sched, x, LAMBDA, steps,
+                                                   g, noise_sampler=sampler,
+                                                   eta=eta)
+        recons = []
+        for _ in range(2 if eta == 0 else 1):
+            gen = torch.Generator(device=DEVICE).manual_seed(21)
+            torch.cuda.synchronize()
+            t0 = time.time()
+            out, recon = detect.evaluate_anomaly_batch(
+                model, sched, sample["image"], sample["mask"], gen, sampler,
+                LAMBDA, fb=fb)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            recons.append(recon)
+            log(f"DDIM-{steps} eta={eta:g} steady volume group: {wall:.3f} s = "
+                f"{len(out['auc']) / wall:.3f} slices/s, {wall / steps * 1e3:.3f} "
+                f"ms per DDIM step")
+        if eta == 0:
+            import numpy as np
+            d = float(np.abs(recons[0] - recons[1]).max())
+            log(f"DDIM-{steps} eta=0, two runs from one seed: max|d| {d:.3e}")
+            require(d <= 1e-5, f"DDIM eta=0 reruns differ by {d}")
+    return total
+
+
+def graph_path(model, args, k2_per_forward):
+    """`graph_data` over lambda = 5, 10, .., 160 on one volume at the lambda
+    batch of 256^2 (one chunk of 32); then a chunk at lambda = 160 against
+    `forward_backward(t_distance=160)` from the same generator seed."""
+    import numpy as np
+    from anoddpm_torch import detect, diffusion
+    from anoddpm_torch.data.datasets import anomalous_dataset_from_args
+    from anoddpm_torch.ops.noise import sampler_from_args
+    from anoddpm_torch.schedule import schedule_from_args
+    sched = schedule_from_args(args).to(DEVICE)
+    batch = detect._auto_lambda_batch(256)
+    max_t = max(GRAPH_LAMBDAS)
+    with tempfile.TemporaryDirectory() as root:
+        reset_launches()
+        t0 = time.time()
+        rows = detect.graph_data((args, model, sched), root_dir=root,
+                                 lambdas=GRAPH_LAMBDAS, max_volumes=1,
+                                 lambda_batch=batch)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        counts = torch_launches()
+        vol_csv = os.path.join(root, "metrics", f"ARGS={CONFIG}",
+                               "synthetic-anomalous-00000.csv")
+        with open(vol_csv) as f:
+            lines = f.read().splitlines()
+    want = (1 + max_t, k2_per_forward * max_t, 0)
+    log(f"graph: {len(GRAPH_LAMBDAS)} lambdas at batch {batch}, {wall:.2f} s for "
+        f"the call; launches K1 {counts[0]}, K2 {counts[1]}, K2b {counts[2]} "
+        f"(expected {want}); peak dice {max(r['dice'] for r in rows):.4f}")
+    require(tuple(counts) == want, f"graph: launches {counts} != {want}")
+    require(len(lines) == 1 + len(GRAPH_LAMBDAS), f"graph: {len(lines)} CSV lines")
+    require(all(math.isfinite(v) for r in rows for v in r.values()),
+            "graph: non-finite curve values")
+    sample = anomalous_dataset_from_args(ROOT, args)[0]
+    x = torch.from_numpy(np.ascontiguousarray(
+        sample["image"][1:2].transpose(0, 3, 1, 2))).to(DEVICE).repeat(batch, 1, 1, 1)
+    sampler = sampler_from_args(args)
+    lam = torch.full((batch,), max_t, dtype=torch.int64, device=DEVICE)
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.time()
+        chunk = diffusion.forward_backward_batched_lambda(
+            model, sched, x, lam, max_t,
+            torch.Generator(device=DEVICE).manual_seed(31), noise_sampler=sampler)
+        torch.cuda.synchronize()
+        chunk_s = time.time() - t0
+        plain = diffusion.forward_backward(
+            model, sched, x, max_t, torch.Generator(device=DEVICE).manual_seed(31),
+            noise_sampler=sampler)
+    d = (chunk - plain).abs().max().item()
+    log(f"graph chunk at batch {batch}, {max_t} masked steps: {chunk_s:.3f} s per "
+        f"chunk, {chunk_s / max_t * 1e3:.3f} ms per masked step; every lambda = "
+        f"{max_t} vs forward_backward from one seed: bit-identical "
+        f"{torch.equal(chunk, plain)}, max|d| {d:.3e}")
+    require(torch.equal(chunk, plain), "batched lambda at max_t differs from "
+            f"forward_backward by {d}")
+    return list(counts)
+
+
+def roc_path(root, k2_per_forward):
+    """`roc_data` for args256syn128 on one volume at lambda 200, reading the
+    final checkpoint that the training phase wrote under `root`."""
+    from anoddpm_torch import detect
+    reset_launches()
+    t0 = time.time()
+    curves = detect.roc_data([CONFIG], root_dir=root, t_distance=LAMBDA,
+                             max_volumes=1, device=DEVICE)
+    torch.cuda.synchronize()
+    counts = torch_launches()
+    with open(os.path.join(root, "metrics", "roc-comparison.csv")) as f:
+        header = f.readline().strip()
+    fpr, tpr = curves[f"args{CONFIG}"]
+    want = (1 + LAMBDA, k2_per_forward * LAMBDA, 0)
+    log(f"roc: {time.time() - t0:.2f} s, header {header!r}, {len(fpr)} curve "
+        f"points; launches K1 {counts[0]}, K2 {counts[1]}, K2b {counts[2]} "
+        f"(expected {want})")
+    require(tuple(counts) == want, f"roc: launches {counts} != {want}")
+    require(header == f"args{CONFIG}_fpr,args{CONFIG}_tpr", f"roc header {header}")
+    require(fpr[-1] == 1.0 and tpr[-1] == 1.0, "roc: the curve does not end at (1, 1)")
+    return list(counts)
+
+
+def small_suite_args():
+    from anoddpm_torch.config import defaultdict_from_json
+    return defaultdict_from_json({
+        **small_train_args(), "arg_num": "smallsuite", "T": SMALL_T,
+        "sample_distance": 150, "EPOCHS": 500, "iters_per_epoch": 1,
+        "checkpoint_every": 1000, "Batch_Size": 8, "save_imgs": True,
+        "save_vids": True, "anomalous_volumes": 1})
+
+
+def files_under(root):
+    """Relative paths of the files under root, .mp4 and .gif as .video."""
+    out = set()
+    for d, _, names in os.walk(root):
+        for f in names:
+            rel = os.path.relpath(os.path.join(d, f), root)
+            out.add(rel[:-4] + ".video" if rel.endswith((".gif", ".mp4")) else rel)
+    return out
+
+
+def small_suite(writers):
+    """The 32^2 config on the card (T = 200): methods A and B,
+    detection_A_fixedT, anomalous_validation, `train.train` with save_imgs
+    and save_vids through 500 epochs of one step and the test-set suite
+    with its videos; the files against the names the JAX package writes."""
+    from anoddpm_torch import detect, train
+    from anoddpm_torch.data.datasets import anomalous_dataset_from_args
+    from anoddpm_torch.schedule import schedule_from_args
+    args = small_suite_args()
+    model = small_unet().to(DEVICE).eval()
+    sched = schedule_from_args(args).to(DEVICE)
+    sample = anomalous_dataset_from_args(ROOT, args)[0]
+    x, mask, fid = sample["image"][1:2], sample["mask"][1:2], sample["filenames"]
+    video = "video" if writers["videos"] else None
+    with tempfile.TemporaryDirectory() as root:
+        reset_launches()
+        t0 = time.time()
+        detect.detection_A(args, model, sched, x, mask, fid, root_dir=root)
+        dice = detect.detection_B(args, model, sched, x, mask, fid, "octave",
+                                  root_dir=root, total_avg=2)
+        rows = detect.detection_A_fixedT(args, model, sched, x, mask,
+                                         t_distance=50)
+        val = detect.anomalous_validation((args, model, sched), root_dir=root,
+                                          max_slices=2, detection_avg=2)
+        sweeps_s = time.time() - t0
+        state = train.train(args, root_dir=root, device=DEVICE)
+        torch.cuda.synchronize()
+        counts = torch_launches()
+        got = files_under(root)
+    require(rows.shape == (36, 32, 32, 1) and math.isfinite(float(rows.sum())),
+            f"detection_A_fixedT gave {rows.shape}")
+    require(len(dice) == 2 and len(val) == 2, f"dice {dice}, validation {val}")
+    require(state.step == 501, f"small train took {state.step} steps")
+    anomalous = f"diffusion-videos/ARGS=smallsuite/Anomalous"
+    want = {f"{anomalous}/{fid}/A/freq={i}-t={t}.png"
+            for i in range(1, 8) for t in (50, 100)}
+    want |= {f"{anomalous}/{fid}/octave/heatmap-t={t}.png" for t in (50, 100)}
+    want |= {f"diffusion-training-images/ARGS=smallsuite/EPOCH={e}.png"
+             for e in range(0, 501, 50)}
+    if video:
+        want |= {"diffusion-videos/ARGS=smallsuite/sample-EPOCH=500.video",
+                 "diffusion-videos/ARGS=smallsuite/test-set/t=100.video"}
+    missing = sorted(want - got)
+    require(not missing, f"small suite: missing {missing}")
+    # validation's timestep is drawn: per slice one heatmap and one video
+    # named t={t}, and method B's heatmaps under {volume}-{slice}/octave
+    for s in (0, 1):
+        heat = [p for p in got if p.startswith(f"{anomalous}/{fid}/{s}/t=")]
+        require(len(heat) == (2 if video else 1), f"validation slice {s}: {heat}")
+        require(any(p.startswith(f"{anomalous}/{fid}-{s}/octave/heatmap-t=")
+                    for p in got), f"validation slice {s}: no method B heatmap")
+    videos_as = ("left out (no imageio)" if not video
+                 else "as mp4" if writers["mp4"] else "as GIF")
+    log(f"small suite (32^2, T {SMALL_T}): sweeps {sweeps_s:.1f} s, then train "
+        f"501 steps with snapshots, videos and the test-set suite; {len(got)} "
+        f"files, the JAX package's names ({len(want)} fixed, validation's per "
+        f"slice); videos {videos_as}; launches K1 "
+        f"{counts[0]}, K2 {counts[1]}, K2b {counts[2]}")
+    require(counts[0] > 0 and counts[1] > 0 and counts[2] > 0,
+            f"small suite: launches {counts}")
+    return list(counts)
+
+
 class Tee(io.TextIOBase):
     """Writes to `out` and keeps a copy."""
 
@@ -733,10 +1089,11 @@ class Tee(io.TextIOBase):
         self.out.flush()
 
 
-def train_path(args, k2_per_forward, card):
+def train_path(args, k2_per_forward, card, root):
     """`train.train` at full width with only the cuts of TRAIN_CUTS, then a
-    RESUME_RECENT leg; exact launch counts per step, the restored AdamW
-    state against the saved one, and a steady window of train steps."""
+    RESUME_RECENT leg, both under `root`; exact launch counts per step, the
+    restored AdamW state against the saved one, and a steady window of
+    train steps."""
     from anoddpm_torch import train, training
     from anoddpm_torch.config import defaultdict_from_json
     from anoddpm_torch.ops.group_norm_silu import BACKWARD_LAUNCHES
@@ -762,42 +1119,41 @@ def train_path(args, k2_per_forward, card):
     purge = train.purge_checkpoints
     train.purge_checkpoints = lambda *a, **k: None
     try:
-        with tempfile.TemporaryDirectory() as root:
-            tee = Tee(sys.stdout)
-            reset_launches()
-            t0 = time.time()
-            with contextlib.redirect_stdout(tee):
-                first = train.train(targs, root_dir=root, device=DEVICE)
-            torch.cuda.synchronize()
-            wall = time.time() - t0
-            leg1 = torch_launches()
-            expect(leg1, steps, 1, f"leg 1 ({steps} steps, {wall:.1f} s)")
-            require(first.step == steps, f"leg 1 took {first.step} steps")
-            sweep = re.search(r"VLB sweep ([0-9.]+) s", tee.kept.getvalue())
-            require(sweep is not None, "no VLB sweep was printed")
-            with open(os.path.join(root, "metrics", f"args{CONFIG}-train.jsonl")) as f:
-                record = json.loads(f.readline())
-            require(math.isfinite(record["loss"]), f"epoch 0 loss {record['loss']}")
-            fresh = train.new_train_state(targs, torch.device(DEVICE))
-            epoch = train.restore_train_state(fresh, root, targs, "RESUME_RECENT")
-            saved, restored = (training.optimizer_state(s) for s in (first, fresh))
-            same = (epoch == epochs and saved.keys() == restored.keys() and all(
-                torch.equal(saved[n][k], restored[n][k])
-                for n in saved for k in saved[n]) and all(
-                torch.equal(a, b) for a, b in zip(first.model.parameters(),
-                                                  fresh.model.parameters())))
-            require(same, "the restored model or AdamW state differs from the "
-                    "saved one")
-            log(f"RESUME_RECENT restored epoch {epoch}: model and AdamW state "
-                f"({len(saved)} parameters, step {float(next(iter(saved.values()))['step']):.0f}) "
-                f"equal the saved ones")
-            del fresh, first
-            reset_launches()
-            second = train.train(targs, root_dir=root, resume="RESUME_RECENT",
-                                 device=DEVICE)
-            torch.cuda.synchronize()
-            leg2 = torch_launches()
-            expect(leg2, iters, 0, f"leg 2 (resumed, {iters} steps)")
+        tee = Tee(sys.stdout)
+        reset_launches()
+        t0 = time.time()
+        with contextlib.redirect_stdout(tee):
+            first = train.train(targs, root_dir=root, device=DEVICE)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        leg1 = torch_launches()
+        expect(leg1, steps, 1, f"leg 1 ({steps} steps, {wall:.1f} s)")
+        require(first.step == steps, f"leg 1 took {first.step} steps")
+        sweep = re.search(r"VLB sweep ([0-9.]+) s", tee.kept.getvalue())
+        require(sweep is not None, "no VLB sweep was printed")
+        with open(os.path.join(root, "metrics", f"args{CONFIG}-train.jsonl")) as f:
+            record = json.loads(f.readline())
+        require(math.isfinite(record["loss"]), f"epoch 0 loss {record['loss']}")
+        fresh = train.new_train_state(targs, torch.device(DEVICE))
+        epoch = train.restore_train_state(fresh, root, targs, "RESUME_RECENT")
+        saved, restored = (training.optimizer_state(s) for s in (first, fresh))
+        same = (epoch == epochs and saved.keys() == restored.keys() and all(
+            torch.equal(saved[n][k], restored[n][k])
+            for n in saved for k in saved[n]) and all(
+            torch.equal(a, b) for a, b in zip(first.model.parameters(),
+                                              fresh.model.parameters())))
+        require(same, "the restored model or AdamW state differs from the "
+                "saved one")
+        log(f"RESUME_RECENT restored epoch {epoch}: model and AdamW state "
+            f"({len(saved)} parameters, step {float(next(iter(saved.values()))['step']):.0f}) "
+            f"equal the saved ones")
+        del fresh, first
+        reset_launches()
+        second = train.train(targs, root_dir=root, resume="RESUME_RECENT",
+                             device=DEVICE)
+        torch.cuda.synchronize()
+        leg2 = torch_launches()
+        expect(leg2, iters, 0, f"leg 2 (resumed, {iters} steps)")
     finally:
         train.purge_checkpoints = purge
     # the steady rate: more steps of the resumed state on the same batches
@@ -842,25 +1198,35 @@ def main():
     t_start = time.time()
     name = device_info()
     build_kernels()
+    writers = probe_writers()
     k1_row = check_k1()
+    k1_worst, _ = check_k1_shapes()
     args = load_args(CONFIG, config_dir=os.path.join(ROOT, "configs"))
     model = seeded_model(args)
     sites = k2_sites(model)
     k2_row = check_k2(sites)
+    k2_worst, _ = check_k2_batches(sites)
     k2b_row = check_k2b(sites)
     check_small_chain()
     check_small_train()
-    detect_counts = main_path(model, args, len(sites))
+    counts = {"detect": main_path(model, args, len(sites)),
+              "ddim": ddim_path(model, args, len(sites)),
+              "graph": graph_path(model, args, len(sites))}
     del model
     torch.cuda.empty_cache()
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
-    train_counts = train_path(args, len(sites), card)
+    with tempfile.TemporaryDirectory() as train_root:
+        counts["train"] = train_path(args, len(sites), card, train_root)
+        counts["roc"] = roc_path(train_root, len(sites))
+    counts["small_suite"] = small_suite(writers)
+    k1_row["max_abs_err"] = max(k1_row["max_abs_err"], k1_worst)
+    k2_row["max_abs_err"] = max(k2_row["max_abs_err"], k2_worst)
     rows = (k1_row, k2_row, k2b_row)
-    for row, d, t in zip(rows, detect_counts, train_counts):
-        row["launches"] = d + t
-        row["launches_by_path"] = {"detect": d, "train": t}
+    for i, row in enumerate(rows):
+        row["launches_by_path"] = {p: c[i] for p, c in counts.items()}
+        row["launches"] = sum(row["launches_by_path"].values())
         row.setdefault("library_device_ms", None)
         row.setdefault("note", None)
     log(f"total {time.time() - t_start:.1f} s")

@@ -67,6 +67,19 @@ def test_simplex_kernel_shapes(cuda, n, h, w, octaves, frequency, t_value):
     _check_simplex_kernel(seeds, t, (h, w), octaves, frequency)
 
 
+@pytest.mark.parametrize("frequency", [2.0, 128.0])
+@pytest.mark.parametrize("n", [1, 32])
+def test_simplex_kernel_suite_frequencies(cuda, frequency, n):
+    """The detection suite's extremes at 256^2: method A_fixedT's frequency
+    2 (the top octave 16 lattice units a pixel, coordinates past 4,000)
+    and method A's 128, for one field and a lambda chunk of 32."""
+    gen = torch.Generator(device=cuda).manual_seed(int(frequency) + n)
+    seeds = torch.randint(0, 1 << 32, (n,), generator=gen, device=cuda,
+                          dtype=torch.int64)
+    t = torch.arange(n, device=cuda, dtype=torch.float32) * 5 + 249
+    _check_simplex_kernel(seeds, t, (256, 256), 6, frequency)
+
+
 def test_simplex_kernel_share_batch(cuda):
     """The sampler with share_batch: one K1 launch for the C fields, each
     repeated over the batch, equal to the plain fields of the same seeds."""
@@ -137,6 +150,15 @@ def _inputs(shape, dtype, device, seed=1):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_group_norm_silu_kernel_matches_plain(cuda, shape, dtype):
     _check_group_norm_silu(*_inputs(shape, dtype, cuda))
+
+
+@pytest.mark.parametrize("n", [1, 32])
+@pytest.mark.parametrize("c,h", [(128, 256), (256, 128), (512, 32), (1024, 8)])
+def test_group_norm_silu_suite_batches(cuda, n, c, h):
+    """args256syn128 sites at the detection suite's batch 1 (methods,
+    validation) and 32 (graph's lambda chunk), in bf16 as the UNet runs
+    them."""
+    _check_group_norm_silu(*_inputs((n, c, h, h), torch.bfloat16, cuda, seed=n))
 
 
 @pytest.mark.parametrize("shape,dtype", [((4, 256, 256, 256), torch.bfloat16),

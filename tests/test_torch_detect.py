@@ -135,17 +135,35 @@ def test_metric_calculation_writes_csv(tmp_path):
     assert float(cells[-1].split(" +- ")[0]) == round(summary["auc"], 4)
 
 
-def test_unported_parts_raise(tmp_path):
-    """DDIM, the sweep modes and the real-data families name their ROADMAP
-    item instead of running something else."""
+def test_unported_parts_raise(tmp_path, monkeypatch):
+    """DDIM and the graph mode run now; the context-encoder curve, a mesh,
+    the randParam noise and the real-data families name their ROADMAP item
+    instead of running something else."""
     port = UNet(**CONFIGS["s2d1"]).eval()
     sched = ts.make_schedule(ts.get_beta_schedule(T, "cosine"))
-    ddim = defaultdict_from_json({**ARGS, "arg_num": "dd", "sampler": "ddim"})
-    with pytest.raises(NotImplementedError, match="ROADMAP.*DDIM"):
+    ddim = defaultdict_from_json({**ARGS, "arg_num": "dd", "sampler": "ddim",
+                                  "ddim_steps": 3, "anomalous_volumes": 1})
+    summary = tdetect.anomalous_metric_calculation(
+        ddim, root_dir=str(tmp_path), em=port, sched=sched, device="cpu")
+    assert all(np.isfinite(summary[k]) for k in METRICS)
+    sd = port.state_dict()
+    args = defaultdict_from_json({**ARGS, "arg_num": "gr", "T": 6,
+                                  "anomalous_volumes": 1})
+    tckpt.save_checkpoint(str(tmp_path), args, 0, sd, sd, {}, final=True)
+    monkeypatch.chdir(tmp_path)
+    tdetect.main(["gr", "graph", "DENSE", "STEP=2", "VOLS=1", "LB=2"],
+                 device="cpu")
+    with open(tmp_path / "metrics" / "ARGS=gr" / "synthetic-anomalous-00000.csv") as f:
+        assert len(f.read().splitlines()) == 1 + 3          # lambdas 0, 2, 4
+    with pytest.raises(NotImplementedError, match="ROADMAP.*context-encoder"):
+        tdetect.main(["gr", "roc", "CE=gr"], device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.*data parallel"):
+        tdetect.graph_data(token="gr", mesh=object(), device="cpu")
+    rand = defaultdict_from_json({**ARGS, "arg_num": "rp",
+                                  "noise_fn": "simplex_randParam"})
+    with pytest.raises(NotImplementedError, match="ROADMAP.*noise variants"):
         tdetect.anomalous_metric_calculation(
-            ddim, root_dir=str(tmp_path), em=port, sched=sched, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.*sweeps"):
-        tdetect.main(["1", "graph"])
+            rand, root_dir=str(tmp_path), em=port, sched=sched, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         anomalous_dataset_from_args(".", defaultdict_from_json(
             {"img_size": (32, 32), "dataset": "mri"}))

@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: importing it loads no JAX, flax or
-anoddpm_tpu, no source of it names them, and its entry points refuse to
+anoddpm_tpu (nor pandas, matplotlib or imageio, which only its writers
+import when called), no source of it names them, and its entry points refuse to
 fall back to the CPU quietly when there is no card."""
 import pathlib
 import re
@@ -18,8 +19,11 @@ def test_import_loads_no_jax():
             "anoddpm_torch.train, anoddpm_torch.training, "
             "anoddpm_torch.evaluation, anoddpm_torch.observe, "
             "anoddpm_torch.models.ema, anoddpm_torch.data.pipeline, "
-            "anoddpm_torch.data.datasets, anoddpm_torch.compat.flax_params; "
-            "bad = [m for m in ('jax', 'flax', 'optax', 'anoddpm_tpu') "
+            "anoddpm_torch.data.datasets, anoddpm_torch.compat.flax_params, "
+            "anoddpm_torch.visualize, anoddpm_torch.graphs, "
+            "anoddpm_torch.metrics, anoddpm_torch.diffusion; "
+            "bad = [m for m in ('jax', 'flax', 'optax', 'anoddpm_tpu', "
+            "'pandas', 'matplotlib', 'imageio') "
             "if m in sys.modules]; print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)

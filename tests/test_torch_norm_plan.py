@@ -1,5 +1,6 @@
 """The launch layout of kernel K2 (`group_norm_silu.plan`), checked on the
-CPU: every shape one args256syn128 UNet forward gives K2 at batch 4 gets a
+CPU: every shape one args256syn128 UNet forward gives K2 at batch 4 (the
+headline protocol) and at batch 1, 19 and 32 (the detection suite) gets a
 layout the card can take, and shapes the kernel does not take raise."""
 import pytest
 import torch
@@ -14,12 +15,13 @@ UNET_SHAPES = [(128, 256), (256, 256), (128, 128), (256, 128), (384, 128),
                (1024, 16), (512, 8), (1024, 8)]
 
 
+@pytest.mark.parametrize("n", [4, 1, 19, 32])
 @pytest.mark.parametrize("c,h", UNET_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_plan_fits_the_card(c, h, dtype):
+def test_plan_fits_the_card(c, h, dtype, n):
     size = torch.finfo(dtype).bits // 8
     group_len = c // 32 * h * h
-    p = gn.plan(4, c, h * h, dtype)
+    p = gn.plan(n, c, h * h, dtype)
     assert 1 <= p.cluster <= gn.MAX_CLUSTER
     assert 32 <= p.threads <= gn.MAX_THREADS and p.threads % 32 == 0
     assert p.slice_len * size % 16 == 0
@@ -29,6 +31,8 @@ def test_plan_fits_the_card(c, h, dtype):
     assert p.smem_bytes <= min(gn.STAGE_MAX_BYTES, SMEM_PER_BLOCK)
     # no thread of a block is without a 16-byte vector
     assert p.threads <= p.slice_len * size // 16
+    # the grid: one block per (sample, group, slice)
+    assert n * 32 * p.cluster < 2 ** 31
 
 
 @pytest.mark.parametrize("c,h", UNET_SHAPES)

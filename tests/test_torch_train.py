@@ -339,18 +339,43 @@ def test_train_entry_point_on_cpu_with_resume(tmp_path, monkeypatch, capsys):
     assert {float(e["step"]) for e in payload["opt"].values()} == {5.0}
 
 
+class StandIn(torch.nn.Module):
+    """A one-layer stand-in for the UNet: eps = 0.1 conv1x1(x)."""
+
+    def __init__(self):
+        super().__init__()
+        self.conv = torch.nn.Conv2d(1, 1, 1)
+
+    def forward(self, x, t):
+        return 0.1 * self.conv(x)
+
+
 def test_unported_options_raise(tmp_path):
+    """remat and train_substeps > 1 still raise, naming their ROADMAP item;
+    save_imgs, save_vids and testing(save_videos=True) now write their
+    files (the epoch-0 sample grid; the test-set video at lambda = 100)."""
     tsched = ts.make_schedule(ts.get_beta_schedule(T, "cosine"))
     with pytest.raises(NotImplementedError, match="remat.*ROADMAP"):
         ttr.make_train_step(tsched, None, remat="dots")
-    for key, value in (("save_imgs", True), ("save_vids", True),
-                       ("train_substeps", 2)):
-        args = defaultdict_from_json({**SMOKE, key: value})
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ttrain.train(args, root_dir=str(tmp_path), device="cpu")
-    from anoddpm_torch.evaluation import testing
+    args = defaultdict_from_json({**SMOKE, "train_substeps": 2})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        testing(iter(()), UNet(**CFG), tsched, SMOKE, save_videos=True)
+        ttrain.train(args, root_dir=str(tmp_path), device="cpu")
+    root = tmp_path / "art"
+    args = defaultdict_from_json({**SMOKE, "arg_num": "tsave", "save_imgs": True,
+                                  "save_vids": True, "skip_test_eval": True})
+    ttrain.train(args, root_dir=str(root), max_epochs=0, device="cpu")
+    assert os.listdir(root / "diffusion-training-images" / "ARGS=tsave") == [
+        "EPOCH=0.png"]
+    from anoddpm_torch.evaluation import testing
+    long = ts.make_schedule(ts.get_beta_schedule(101, "cosine"))
+    loader = tpipe.batch_iterator(dataset_from_args(".", defaultdict_from_json(
+        {"img_size": (32, 32)})), 1)
+    results = testing(loader, StandIn(), long, defaultdict_from_json(
+        {"arg_num": "tv", "sample_distance": 101}), root_dir=str(root),
+        n_images=1, save_videos=True)
+    assert np.isfinite(results["psnr"])
+    videos = os.listdir(root / "diffusion-videos" / "ARGS=tv" / "test-set")
+    assert [os.path.splitext(v)[0] for v in videos] == ["t=100"]
     with pytest.raises(SystemExit):
         ttrain.main([])
 

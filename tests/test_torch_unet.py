@@ -61,3 +61,32 @@ def test_paper_config_structure():
     assert port.out_conv.dtype == torch.float32
     assert (sum(p.numel() for p in port.parameters())
             == GOLDENS["256_128_1_2_-1_16,8"]["params"])
+
+
+@pytest.mark.parametrize("kind", ["conv", "dense"])
+def test_init_is_flax_lecun_normal(kind):
+    """Conv and dense kernels start from flax's default init, lecun_normal:
+    a normal truncated at +-2 s, s = sqrt(1/fan_in) / 0.8796, against JAX's
+    own draw of the same shape (fan_in 1,152, 147,456 weights): the std
+    within 2%, no weight beyond 2 s, and a two-sample KS statistic below
+    0.01.  Zero-initialised layers stay zero."""
+    from scipy.stats import ks_2samp
+    from flax.linen.linear import default_kernel_init
+    from anoddpm_torch.models.unet import Conv, Dense
+    torch.manual_seed(0)
+    if kind == "conv":
+        layer, shape = Conv(128, 128, 3, torch.float32), (3, 3, 128, 128)
+        zero = Conv(128, 128, 3, torch.float32, zero=True)
+    else:
+        layer, shape = Dense(1152, 128, torch.float32), (1152, 128)
+        zero = Dense(1152, 128, torch.float32, zero=True)
+    fan_in = int(np.prod(shape[:-1]))
+    got = layer.weight.detach().numpy().ravel()
+    want = np.asarray(default_kernel_init(jax.random.key(0), shape,
+                                          jnp.float32)).ravel()
+    s = np.sqrt(1.0 / fan_in) / 0.87962566103423978
+    assert got.size == want.size >= 10 ** 5 and fan_in >= 1152
+    assert abs(got.std() / want.std() - 1.0) <= 0.02
+    assert np.abs(got).max() <= 2 * s + 1e-6
+    assert ks_2samp(got, want).statistic < 0.01
+    assert not zero.weight.detach().any() and not layer.bias.detach().any()

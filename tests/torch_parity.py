@@ -12,6 +12,14 @@ from anoddpm_torch.models.unet import UNet
 
 T = 20  # the cosine schedule length of the chain tests
 
+# The suite runs as several worker processes on one machine (pytest-xdist,
+# and every worker imports this module while collecting).  Torch's default
+# of one intra-op thread per core in each of them oversubscribes the cores,
+# and its parallel regions then wait on descheduled threads: with 4 workers
+# on 8 cores the port's tests ran for over 17 minutes and were stopped at
+# 91%, and took 100 s with one thread per worker.
+torch.set_num_threads(1)
+
 
 def nchw(a):
     return torch.from_numpy(np.ascontiguousarray(np.asarray(a).transpose(0, 3, 1, 2)))
@@ -62,3 +70,24 @@ def bank_samplers(shape_nhwc, seed=2):
     jbank = jnp.asarray(bank)
     tbank = torch.from_numpy(np.ascontiguousarray(bank.transpose(0, 1, 4, 2, 3)))
     return (lambda k, s, t: jbank[t[0]]), (lambda s, t, g: tbank[t[0]])
+
+
+def per_sample_bank_samplers(shape_nhwc, seed=2, steps=T):
+    """A numpy noise bank of `steps` timesteps by B samples, as a JAX sampler
+    and its twin that both give sample i at timestep t[i] the field
+    bank[t[i], i], so that per-sample timesteps (the batched-lambda chain's
+    q-jump) read the same noise on both sides; at a uniform t this is
+    `bank_samplers` with one field per sample."""
+    bank = np.random.default_rng(seed).normal(
+        size=(steps,) + tuple(shape_nhwc)).astype(np.float32)
+    jbank = jnp.asarray(bank)
+    tbank = torch.from_numpy(np.ascontiguousarray(bank.transpose(0, 1, 4, 2, 3)))
+
+    def jax_sampler(key, shape, t):
+        return jbank[t, jnp.arange(shape[0])]
+
+    def torch_sampler(shape, t, generator):
+        t = t.cpu()
+        return tbank[t, torch.arange(shape[0])].to(generator.device)
+
+    return jax_sampler, torch_sampler
