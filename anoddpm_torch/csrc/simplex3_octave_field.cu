@@ -45,6 +45,12 @@
 //   in lexicographic order, then the two extra vertices) and divided by 103
 //   exactly.  The octave scale is (1/f) * 2^o and the amplitude a running
 //   product of the persistence, both as in the plain version.
+// - Two entries share the body and the launch plan.  One takes (octaves,
+//   persistence, frequency) as arguments.  The other reads them from three
+//   floats on the card, for the "simplex_randParam" noise, whose triple is
+//   drawn on the device (anoddpm_tpu/ops/noise.py:118-149, over
+//   `fractal3_fixed_t_masked`); its octave count is at most MAX_OCTAVES,
+//   the bound of the masked loop there.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -63,6 +69,7 @@ constexpr unsigned FULL = 0xFFFFFFFFu;
 // holds the kernel to 64 registers without spills.
 constexpr int WARP_W = 8, WARP_H = 4;
 constexpr int WARPS = 16, THREADS = 32 * WARPS, MIN_BLOCKS = 2;
+constexpr int MAX_OCTAVES = 10;
 static_assert(WARP_W * WARP_H == 32, "a warp tile holds 32 pixels");
 
 // The 24 OpenSimplex gradients in shared memory, x then y then z
@@ -356,11 +363,19 @@ __device__ __forceinline__ float opensimplex3_hash(unsigned table,
   return __fdiv_rn(value, NORM3);
 }
 
+// FROM_DEVICE: (octaves, persistence, frequency) are params[0..2] on the
+// card instead of the arguments.
+template <bool FROM_DEVICE>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
     octave_field_kernel(const int64_t* __restrict__ seeds,
                         const float* __restrict__ ts, float* __restrict__ out,
                         int n, int h, int w, int octaves, float persistence,
-                        float frequency) {
+                        float frequency, const float* __restrict__ params) {
+  if (FROM_DEVICE) {
+    octaves = min((int)params[0], MAX_OCTAVES);
+    persistence = params[1];
+    frequency = params[2];
+  }
   __shared__ GradTable g;
   if (threadIdx.x < 24) {
     const unsigned r = threadIdx.x, m = r % 3u, q = r / 3u;
@@ -410,20 +425,28 @@ const char* cuda_error_string(int code) {
 
 // The kernel as built for the current device, into out[0..4]: registers per
 // thread, local (spill) bytes per thread, static shared bytes per block,
-// threads per block, and blocks resident per SM at once.
+// threads per block, and blocks resident per SM at once.  Both instances are
+// queried (the static entry's and the parameters-from-device entry's): one
+// launch plan serves both, so each figure is the worse of the two.
 int simplex3_octave_field_attributes(int* out) {
-  cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, octave_field_kernel);
-  if (err != cudaSuccess) return (int)err;
-  int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks, octave_field_kernel, THREADS, 0);
-  if (err != cudaSuccess) return (int)err;
-  out[0] = attr.numRegs;
-  out[1] = (int)attr.localSizeBytes;
-  out[2] = (int)attr.sharedSizeBytes;
+  out[0] = out[1] = out[2] = 0;
   out[3] = THREADS;
-  out[4] = blocks;
+  out[4] = 1 << 30;
+  const void* kernels[2] = {(const void*)octave_field_kernel<false>,
+                            (const void*)octave_field_kernel<true>};
+  for (const void* kernel : kernels) {
+    cudaFuncAttributes attr;
+    cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+    if (err != cudaSuccess) return (int)err;
+    int blocks = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                        THREADS, 0);
+    if (err != cudaSuccess) return (int)err;
+    if (attr.numRegs > out[0]) out[0] = attr.numRegs;
+    if ((int)attr.localSizeBytes > out[1]) out[1] = (int)attr.localSizeBytes;
+    if ((int)attr.sharedSizeBytes > out[2]) out[2] = (int)attr.sharedSizeBytes;
+    if (blocks < out[4]) out[4] = blocks;
+  }
   return 0;
 }
 
@@ -432,9 +455,21 @@ int simplex3_octave_field_attributes(int* out) {
 int simplex3_octave_field(const void* seeds, const void* ts, void* out, int n,
                           int h, int w, int octaves, float persistence,
                           float frequency, int blocks, void* stream) {
-  octave_field_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
+  octave_field_kernel<false><<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
       (const int64_t*)seeds, (const float*)ts, (float*)out, n, h, w, octaves,
-      persistence, frequency);
+      persistence, frequency, nullptr);
+  return (int)cudaGetLastError();
+}
+
+// The same with (octaves, persistence, frequency) read on the card from
+// params: (3,) fp32, the octave count a whole number, at most MAX_OCTAVES.
+int simplex3_octave_field_device_params(const void* seeds, const void* ts,
+                                        const void* params, void* out, int n,
+                                        int h, int w, int blocks,
+                                        void* stream) {
+  octave_field_kernel<true><<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
+      (const int64_t*)seeds, (const float*)ts, (float*)out, n, h, w, 0, 0.0f,
+      1.0f, (const float*)params);
   return (int)cudaGetLastError();
 }
 

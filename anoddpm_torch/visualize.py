@@ -4,7 +4,9 @@ diffusion videos, from NHWC float arrays in [-1, 1].
 Counterpart of `anoddpm_tpu/visualize.py`, with the same artifact names
 and panel layouts.  Grid PNGs are written by the small encoder below
 (numpy, `zlib`, `struct`: 8-bit grey or RGB, the title as a PNG `tEXt`
-chunk), so that grids and heatmaps need no plotting package.  `save_video`
+chunk), so that grids and heatmaps need no plotting package; its
+counterpart `decode_png` reads 8-bit PNGs for the texture datasets, so
+that they need no image package either.  `save_video`
 imports `imageio` when it is called: an mp4 where imageio has a writer for
 it, else a GIF beside the asked-for path.
 """
@@ -73,6 +75,76 @@ def encode_png(image: np.ndarray, title: Optional[str] = None) -> bytes:
     out.append(_chunk(b"IDAT", zlib.compress(raw.tobytes(), 6)))
     out.append(_chunk(b"IEND", b""))
     return b"".join(out)
+
+
+_PNG_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}  # colour type -> samples per pixel
+
+
+def _unfilter(kind: int, row: bytearray, prior: bytes, bpp: int) -> None:
+    """Undo one scanline's PNG filter in place (None, Sub, Up, Average,
+    Paeth), `prior` the previous scanline, already unfiltered."""
+    n = len(row)
+    if kind == 1:
+        for i in range(bpp, n):
+            row[i] = (row[i] + row[i - bpp]) & 0xFF
+    elif kind == 2:
+        for i in range(n):
+            row[i] = (row[i] + prior[i]) & 0xFF
+    elif kind == 3:
+        for i in range(n):
+            left = row[i - bpp] if i >= bpp else 0
+            row[i] = (row[i] + ((left + prior[i]) >> 1)) & 0xFF
+    elif kind == 4:
+        for i in range(n):
+            a = row[i - bpp] if i >= bpp else 0
+            b = prior[i]
+            c = prior[i - bpp] if i >= bpp else 0
+            p = a + b - c
+            pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
+            pred = a if pa <= pb and pa <= pc else b if pb <= pc else c
+            row[i] = (row[i] + pred) & 0xFF
+    elif kind != 0:
+        raise ValueError(f"decode_png: unknown filter type {kind}")
+
+
+def decode_png(data: bytes) -> np.ndarray:
+    """An 8-bit, non-interlaced PNG as uint8: (H, W) grey, (H, W, 2) grey
+    and alpha, (H, W, 3) RGB or (H, W, 4) RGBA.  Raises on other formats."""
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise ValueError("decode_png: not a PNG")
+    pos, idat, header = 8, [], None
+    while pos + 8 <= len(data):
+        length, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + length]
+        pos += 12 + length
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat.append(body)
+        elif kind == b"IEND":
+            break
+    if header is None:
+        raise ValueError("decode_png: no IHDR chunk")
+    w, h, depth, color, _, _, interlace = header
+    if depth != 8 or color not in _PNG_CHANNELS or interlace:
+        raise ValueError(f"decode_png: bit depth {depth}, colour type {color}, "
+                         f"interlace {interlace}: only 8-bit grey, grey+alpha, "
+                         "RGB and RGBA without interlacing are read")
+    bpp = _PNG_CHANNELS[color]
+    stride = w * bpp
+    raw = zlib.decompress(b"".join(idat))
+    if len(raw) != h * (stride + 1):
+        raise ValueError(f"decode_png: {len(raw)} bytes of image data for "
+                         f"{h} rows of {stride}")
+    out = np.empty((h, stride), np.uint8)
+    prior = bytes(stride)
+    for y in range(h):
+        start = y * (stride + 1)
+        row = bytearray(raw[start + 1:start + 1 + stride])
+        _unfilter(raw[start], row, prior, bpp)
+        out[y] = np.frombuffer(bytes(row), np.uint8)
+        prior = row
+    return out.reshape(h, w) if bpp == 1 else out.reshape(h, w, bpp)
 
 
 def save_grid_png(path: str, images: np.ndarray, row_size: int = -1,

@@ -57,7 +57,23 @@ PyTorch built for CUDA.  Phases, each of which fails the run when it fails:
 11. the suite at 32^2 (T 200): methods A and B, `detection_A_fixedT`,
    `anomalous_validation`, and `train.train` with save_imgs and save_vids
    through 500 epochs and the test-set suite with its videos, each file
-   under the name the JAX package gives it.
+   under the name the JAX package gives it; then one detection pass each
+   on an MVTec leather fixture (3 channels) and a DAGM carpet fixture,
+   PNGs written by the port's encoder;
+12. the MRI configuration: configs/args28.json (256^2, base 128, simplex,
+   batch 1, bf16) on fixture files written from a seed in NFBS's and
+   Edinburgh's layouts, through `python -m anoddpm_torch.data.preprocess`,
+   `train.train` (only EPOCHS, iters_per_epoch and checkpoint_every cut;
+   exact launches per step), timed windows of train steps with simplex,
+   simplex_randParam and random noise under sync-debug "error",
+   `anomalous_metric_calculation` on the preprocessed volume (4 slices,
+   lambda 200; exact launches, the CSV), a steady volume group, and
+   `data.inspect` in compare mode.
+
+Phase 3 also holds K1's parameters-from-device entry (randParam) against
+its plain version at all 23 RAND_PARAM_TABLE triples, the simplex volume
+through K1 against the plain volume, and the table and 2-D noise paths
+(plain PyTorch) on the card against the CPU, with their times.
 
 The line before the last is the JSON kernel table; the last line is
 {"ok": true, "device": {...}}.  Exits non-zero on any failure, and when
@@ -113,6 +129,18 @@ DDIM_PROTOCOLS = ((15, 1.0), (25, 0.0))     # (steps, eta)
 GRAPH_LAMBDAS = list(range(5, 161, 5))      # 32 lambdas, one chunk at 256^2
 SMALL_T = 200                               # the 32^2 suite's schedule length
 STEADY_STEPS = 10           # timed train steps at full width
+# The MRI configuration: configs/args28.json (the paper's simplex model) at
+# full width on fixture files in NFBS's and Edinburgh's layouts, with only
+# EPOCHS, the iterations per epoch and checkpoint_every cut (and the
+# test-set suite skipped, as in the training phase).
+MRI_CONFIG = "28"
+MRI_CUTS = {"EPOCHS": 0, "iters_per_epoch": 4, "checkpoint_every": 1000}
+NFBS_SHAPE = (256, 256, 192)            # NFBS T1 volumes; coronal slices on axis 1
+EDINBURGH_SHAPE = (256, 256, 160)       # slices x H x W after preprocess's rot90
+EDINBURGH_OTHERS = (210, 64, 48)        # the other 21 volumes, for inspect's draws
+NOISE_KINDS = ("simplex", "simplex_randParam", "random")
+NOISE_HW = (256, 256)                   # the noise kinds' field size
+NOISE_VOLUME_Z = 64                     # planes of the simplex volume
 # K1's instructions by class for one pixel: the least the function needs in
 # the form the kernel computes it (csrc/simplex3_octave_field.cu), every
 # float operation rounded on its own as the plain version does it, every
@@ -328,17 +356,17 @@ def check_k1():
                 bound_by="operations", library_ms=None)
 
 
-def k2_sites(model):
-    """(shape, dtype) of every K2 call in one forward of `model` at batch 4:
-    one per NormSiLU module (85 for args256syn128)."""
+def k2_sites(model, batch=BATCH):
+    """(shape, dtype) of every K2 call in one forward of `model` at `batch`:
+    one per NormSiLU module (85 for args256syn128 and args28)."""
     from anoddpm_torch.models.unet import NormSiLU
     seen = []
     hooks = [m.register_forward_pre_hook(
         lambda mod, inp: seen.append((tuple(inp[0].shape), inp[0].dtype)))
         for m in model.modules() if isinstance(m, NormSiLU)]
-    x = torch.zeros((BATCH, 1, 256, 256), device=DEVICE)
+    x = torch.zeros((batch, 1, 256, 256), device=DEVICE)
     with torch.inference_mode():
-        model(x, torch.zeros((BATCH,), dtype=torch.int64, device=DEVICE))
+        model(x, torch.zeros((batch,), dtype=torch.int64, device=DEVICE))
     for h in hooks:
         h.remove()
     require(len(seen) == len(hooks),
@@ -445,25 +473,8 @@ def check_k2b(sites):
         for dtype in (torch.float32, torch.bfloat16):
             x, go = x32.to(dtype), g32.to(dtype)
             _, mean, rstd = gn.group_norm_silu_with_stats(x, gamma, beta)
-            got = gn.group_norm_silu_backward(x, go, gamma, beta, mean, rstd)
-            again = gn.group_norm_silu_backward(x, go, gamma, beta, mean, rstd)
-            want = gn._plain_backward(x, go, gamma, beta, mean, rstd)
-            torch.cuda.synchronize()
-            require(all(torch.equal(a, b) for a, b in zip(got, again)),
-                    f"K2b {shape} {dtype}: two runs differ")
-            dx, wdx = got[0].float(), want[0].float()
-            diff = (dx - wdx).abs()
-            if dtype == torch.float32:
-                ok = (diff <= K2B_TOL + K2B_TOL * wdx.abs()).all().item()
-            else:
-                ok = (diff <= torch.clamp(bf16_ulp(wdx), min=K2B_TOL)).all().item()
-            err = diff.max().item()
+            err, rel = k2b_case(x, go, gamma, beta, mean, rstd)
             max_err = max(max_err, err)
-            require(ok, f"K2b {shape} {dtype}: dx max|d| {err:.3e} out of tolerance")
-            rel = max(((g - w).abs().max() / w.abs().max().clamp_min(1e-30)).item()
-                      for g, w in zip(got[1:], want[1:]))
-            require(rel <= K2B_TOL, f"K2b {shape} {dtype}: dgamma/dbeta off by "
-                    f"{rel:.3e} of their largest value")
             kernel = lambda: gn.group_norm_silu_backward(x, go, gamma, beta,
                                                          mean, rstd)
             xl = x.detach().clone().requires_grad_()
@@ -509,6 +520,58 @@ def check_k2b(sites):
                 plain_ms=total[2], bound_ms=total[5],
                 bound_by="bytes", library_ms=total[3],
                 library_device_ms=total[4])
+
+
+def k2b_case(x, go, gamma, beta, mean, rstd):
+    """K2b on one set of inputs against `_plain_backward`: two runs
+    bit-identical, dx within K2B_TOL (fp32) or a bf16 ulp, dgamma and dbeta
+    within K2B_TOL of their largest value.  Returns dx's max|d| and
+    dgamma/dbeta's error as a share of their largest value."""
+    from anoddpm_torch.ops import group_norm_silu as gn
+    what = f"K2b {tuple(x.shape)} {x.dtype}"
+    got = gn.group_norm_silu_backward(x, go, gamma, beta, mean, rstd)
+    again = gn.group_norm_silu_backward(x, go, gamma, beta, mean, rstd)
+    want = gn._plain_backward(x, go, gamma, beta, mean, rstd)
+    torch.cuda.synchronize()
+    require(all(torch.equal(a, b) for a, b in zip(got, again)),
+            f"{what}: two runs differ")
+    dx, wdx = got[0].float(), want[0].float()
+    diff = (dx - wdx).abs()
+    if x.dtype == torch.float32:
+        ok = (diff <= K2B_TOL + K2B_TOL * wdx.abs()).all().item()
+    else:
+        ok = (diff <= torch.clamp(bf16_ulp(wdx), min=K2B_TOL)).all().item()
+    err = diff.max().item()
+    require(ok, f"{what}: dx max|d| {err:.3e} out of tolerance")
+    rel = max(((g - w).abs().max() / w.abs().max().clamp_min(1e-30)).item()
+              for g, w in zip(got[1:], want[1:]))
+    require(rel <= K2B_TOL, f"{what}: dgamma/dbeta off by {rel:.3e} of their "
+            "largest value")
+    return err, rel
+
+
+def check_k2b_batch(sites, n):
+    """K2b against `_plain_backward` at every K2 site's (C, H, W), each at
+    its own dtype, at batch `n`, under `k2b_case`'s rules.  Returns the
+    worst dx max|d|."""
+    from anoddpm_torch.ops import group_norm_silu as gn
+    gen = torch.Generator(device=DEVICE).manual_seed(16)
+    worst, worst_rel = 0.0, 0.0
+    cases = sorted({(s[1:], dt) for s, dt in sites},
+                   key=lambda s: (s[0][1], s[0][0], str(s[1])))
+    for chw, dtype in cases:
+        shape, c = (n,) + chw, chw[0]
+        x = (torch.randn(shape, generator=gen, device=DEVICE) * 1.7 + 0.4).to(dtype)
+        go = torch.randn(shape, generator=gen, device=DEVICE).to(dtype)
+        gamma = 1 + 0.1 * torch.randn(c, generator=gen, device=DEVICE)
+        beta = 0.1 * torch.randn(c, generator=gen, device=DEVICE)
+        _, mean, rstd = gn.group_norm_silu_with_stats(x, gamma, beta)
+        err, rel = k2b_case(x, go, gamma, beta, mean, rstd)
+        worst, worst_rel = max(worst, err), max(worst_rel, rel)
+    log(f"K2b at N={n}: all {len(cases)} (C, H, W, dtype) of the {len(sites)} "
+        f"sites in tolerance, bit-identical reruns (worst dx max|d| "
+        f"{worst:.3e}, dgamma/dbeta {worst_rel:.2e} of max)")
+    return worst
 
 
 def k2b_host_us(gn=None):
@@ -1075,6 +1138,421 @@ def small_suite(writers):
     return list(counts)
 
 
+def write_nifti(path, data, code, dtype):
+    """A gzipped single-file NIfTI-1 image of `data` stored as `dtype`
+    (NIfTI datatype `code`), little-endian, unscaled."""
+    import gzip
+    import struct
+    import numpy as np
+    data = np.asarray(data)
+    hdr = bytearray(352)
+    struct.pack_into("<i", hdr, 0, 348)
+    struct.pack_into("<8h", hdr, 40, *((data.ndim,) + data.shape + (1,) * (7 - data.ndim)))
+    struct.pack_into("<hh", hdr, 70, code, np.dtype(dtype).itemsize * 8)
+    struct.pack_into("<fff", hdr, 108, 352.0, 1.0, 0.0)
+    hdr[344:348] = b"n+1\x00"
+    with gzip.open(path, "wb", compresslevel=1) as f:
+        f.write(bytes(hdr))
+        f.write(data.astype("<" + np.dtype(dtype).str[1:]).tobytes(order="F"))
+
+
+def edinburgh_volume(rng, shape, slices):
+    """A post-rot90 Edinburgh volume (S, H, W) of smooth phantom slices (16,
+    each held for S / 16 slices) with an ellipsoid lesion over the tumour
+    slice range, and its mask."""
+    import numpy as np
+    from anoddpm_torch.data.synthetic import _phantom
+    n, h, w = shape
+    lo, hi = slices
+    vol = np.repeat(np.stack([_phantom(rng, (h, w)) for _ in range(16)]),
+                    -(-n // 16), axis=0)[:n]
+    zz, yy, xx = np.ogrid[0:n, 0:h, 0:w]
+    centre = ((lo + hi) / 2, 0.55 * h, 0.5 * w)
+    radii = ((hi - lo) / 2 + 2, 0.14 * h, 0.16 * w)
+    d2 = sum(((g - c) / r) ** 2 for g, c, r in zip((zz, yy, xx), centre, radii))
+    mask = d2 < 1.0
+    vol = np.where(mask & (vol > 0.05), vol + 0.5 * np.exp(-2.0 * d2), vol)
+    return vol.astype(np.float32), mask
+
+
+def mri_fixtures(datasets):
+    """DATASETS/ as `preprocess` and `dataset_from_args` read it, from a
+    fixed seed: NFBS Train (2 volumes) and Test (1) at 256 x 256 x 192, int16;
+    the 22 Edinburgh raw volumes and masks (17904 at 256 slices of 256 x 160,
+    the others at 210 slices of 64 x 48: inspect's compare sheets draw from
+    all 22, as the JAX package's do), float32 and uint8.  Returns the seconds
+    taken by the NFBS volumes and 17904, and by the 21 others."""
+    import numpy as np
+    from anoddpm_torch.data.datasets import EDINBURGH_SLICES
+    from anoddpm_torch.data.synthetic import _phantom
+    t0, others = time.time(), 0.0
+    rng = np.random.default_rng(28)
+    for sub, names in (("Train", ("A00028", "A00029")), ("Test", ("A00030",))):
+        for name in names:
+            d = os.path.join(datasets, sub, name)
+            os.makedirs(d)
+            # 16 phantoms, each held for 16 coronal slices
+            vol = np.repeat(np.stack([_phantom(rng, (NFBS_SHAPE[0], NFBS_SHAPE[2]))
+                                      for _ in range(16)], axis=1),
+                            -(-NFBS_SHAPE[1] // 16), axis=1)[:, :NFBS_SHAPE[1]]
+            write_nifti(os.path.join(d, f"sub-{name}_ses-NFB3_T1w.nii.gz"),
+                        np.rint(vol * 1000), 4, np.int16)
+    ano = os.path.join(datasets, "CancerousDataset", "EdinburghDataset",
+                       "Anomalous-T1")
+    for sub in ("raw", "mask_raw"):
+        os.makedirs(os.path.join(ano, sub))
+    for name, slices in sorted(EDINBURGH_SLICES.items()):
+        t1 = time.time()
+        shape = EDINBURGH_SHAPE if name == "17904" else EDINBURGH_OTHERS
+        vol, mask = edinburgh_volume(rng, shape, slices)
+        # stored so that preprocess's np.rot90 gives back (S, H, W)
+        write_nifti(os.path.join(ano, "raw", f"{name}.nii.gz"),
+                    np.rot90(vol * 500, -1), 16, np.float32)
+        write_nifti(os.path.join(ano, "mask_raw", f"{name}.nii.gz"),
+                    np.rot90(mask, -1), 2, np.uint8)
+        if name != "17904":
+            others += time.time() - t1
+    return time.time() - t0 - others, others
+
+
+@contextlib.contextmanager
+def sync_debug_error():
+    """torch.cuda.set_sync_debug_mode("error") for the block: any operation
+    that synchronises the host with the card raises."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def noise_window(state, batch, sched, targs, kind):
+    """STEADY_STEPS train steps with noise `kind` after 3 warm-up steps, the
+    whole window under sync-debug "error": a host sync anywhere in the step
+    fails the run.  Returns (ms per step, the window's (K1, K2, K2b)
+    launches)."""
+    from anoddpm_torch import training
+    from anoddpm_torch.ops.noise import sampler_from_args
+    sampler = sampler_from_args({**targs, "noise_fn": kind})
+    max_t = min(int(targs["sample_distance"]), int(targs["T"]))
+    gen = torch.Generator(device=DEVICE).manual_seed(31)
+    step = training.make_train_step(sched, sampler, max_t=max_t)
+    for _ in range(3):
+        step(state, batch, gen)
+    torch.cuda.synchronize()
+    before = torch_launches()
+    t0 = time.time()
+    with sync_debug_error():
+        for _ in range(STEADY_STEPS):
+            metrics = step(state, batch, gen)
+    torch.cuda.synchronize()
+    ms = (time.time() - t0) / STEADY_STEPS * 1e3
+    got = [a - b for a, b in zip(torch_launches(), before)]
+    require(math.isfinite(float(metrics["loss"])), f"{kind}: loss {metrics['loss']}")
+    return ms, got
+
+
+def mri_path(card):
+    """The paper's MRI configuration (args28) at full width on fixture files:
+    preprocess's CLI, `train.train` with exact launches per step and its
+    final checkpoint, timed windows of train steps with simplex, randParam
+    and random noise under sync-debug "error", K2b against its plain version
+    at the config's batch of 1 at every K2 site, `anomalous_metric_calculation`
+    on the preprocessed volume with exact launches, a steady volume group,
+    and `inspect` in compare mode.  Returns the launches by part, the ms per
+    step of each noise window, slices/s, and K2b's worst dx max|d|."""
+    import numpy as np
+    from anoddpm_torch import detect, train
+    from anoddpm_torch.config import defaultdict_from_json, load_args
+    from anoddpm_torch.data import inspect as dinspect
+    from anoddpm_torch.data.datasets import (anomalous_dataset_from_args,
+                                             dataset_from_args)
+    from anoddpm_torch.data.pipeline import to_nchw
+    from anoddpm_torch.models.unet import NormSiLU
+    from anoddpm_torch.ops.group_norm_silu import BACKWARD_LAUNCHES
+    from anoddpm_torch.ops.noise import sampler_from_args
+    from anoddpm_torch.schedule import schedule_from_args
+    args = load_args(MRI_CONFIG, config_dir=os.path.join(ROOT, "configs"))
+    targs = defaultdict_from_json({**args, **MRI_CUTS, "skip_test_eval": True})
+    counts, parts = {}, {}
+    with tempfile.TemporaryDirectory() as root:
+        datasets = os.path.join(root, "DATASETS")
+        parts["fixtures"], parts["fixtures, 21 other Edinburgh"] = mri_fixtures(datasets)
+        t0 = time.time()
+        proc = subprocess.run(
+            [sys.executable, "-m", "anoddpm_torch.data.preprocess", datasets],
+            cwd=ROOT, capture_output=True, text=True, timeout=600)
+        parts["preprocess"] = time.time() - t0
+        require(proc.returncode == 0, f"preprocess failed: {proc.stderr[-2000:]}")
+        require("cached: 2 train, 1 test, 22 anomalous volumes" in proc.stdout,
+                f"preprocess said {proc.stdout[-300:]!r}")
+        log(f"MRI fixtures ({card}): NFBS 2 train + 1 test at {NFBS_SHAPE}, "
+            f"Edinburgh 17904 at {EDINBURGH_SHAPE} (S, H, W) and 21 more at "
+            f"{EDINBURGH_OTHERS}; preprocess by `python -m "
+            f"anoddpm_torch.data.preprocess`")
+
+        iters = MRI_CUTS["iters_per_epoch"]
+        steps = (MRI_CUTS["EPOCHS"] + 1) * iters
+        sweep_t = int(targs["T"])
+        reset_launches()
+        t0 = time.time()
+        tee = Tee(sys.stdout)
+        with contextlib.redirect_stdout(tee):
+            state = train.train(targs, root_dir=root, device=DEVICE)
+        torch.cuda.synchronize()
+        wall = parts["train.train"] = time.time() - t0
+        sweep = re.search(r"VLB sweep ([0-9.]+) s", tee.kept.getvalue())
+        require(sweep is not None, "MRI train: no VLB sweep was printed")
+        parts["train.train, VLB sweep"] = float(sweep.group(1))
+        sites = sum(isinstance(m, NormSiLU) for m in state.model.modules())
+        got = torch_launches()
+        want = (steps, sites * (steps + sweep_t), sites * BACKWARD_LAUNCHES * steps)
+        log(f"MRI train.train args{MRI_CONFIG} (batch {targs['Batch_Size']}, "
+            f"{targs['compute_dtype']}, {targs['noise_fn']} noise, cut {MRI_CUTS}, "
+            f"skip_test_eval): {steps} steps and the {sweep_t}-forward VLB "
+            f"sweep in {wall:.1f} s; launches K1 {got[0]}, K2 {got[1]}, K2b "
+            f"{got[2]} (expected {want}: per step 1, {sites}, {sites} x "
+            f"{BACKWARD_LAUNCHES})")
+        require(tuple(got) == want, f"MRI train: launches {got} != {want}")
+        require(state.step == steps, f"MRI train took {state.step} steps")
+        counts["mri_train"] = list(got)
+        final = [d for d, _, _ in os.walk(os.path.join(root, "model"))
+                 if d.endswith("params-final")]
+        require(len(final) == 1, f"MRI train: final checkpoints {final}")
+        # the config's batch is 1: K2b's grid and its dgamma/dbeta sums differ
+        # from the batch-8 check's
+        t0 = time.time()
+        mri_sites = k2_sites(state.model, batch=int(targs["Batch_Size"]))
+        require(len(mri_sites) == sites, f"MRI: {len(mri_sites)} K2 calls, {sites} sites")
+        k2b_worst = check_k2b_batch(mri_sites, int(targs["Batch_Size"]))
+        parts["K2b at N=1"] = time.time() - t0
+
+        sched = schedule_from_args(targs).to(DEVICE)
+        ds = dataset_from_args(root, targs)
+        batch = to_nchw(np.stack([ds[0]["image"]])).to(DEVICE)
+        windows = {}
+        counts["mri_noise_windows"] = [0, 0, 0]
+        want = (STEADY_STEPS, sites * STEADY_STEPS,
+                sites * BACKWARD_LAUNCHES * STEADY_STEPS)
+        for kind in NOISE_KINDS:
+            t0 = time.time()
+            ms, got = noise_window(state, batch, sched, targs, kind)
+            parts[f"{kind} window"] = time.time() - t0
+            windows[kind] = ms
+            log(f"MRI train step at args{MRI_CONFIG}, batch 1, {kind} noise "
+                f"({card}): {ms:.3f} ms per step over {STEADY_STEPS} steps, "
+                f"launches K1 {got[0]}, K2 {got[1]}, K2b {got[2]}; sync-debug "
+                f"\"error\" over the whole steps")
+            require(tuple(got) == want, f"{kind}: launches {got} in "
+                    f"{STEADY_STEPS} steps, expected {want}")
+            counts["mri_noise_windows"] = [
+                a + b for a, b in zip(counts["mri_noise_windows"], got)]
+        del state
+        torch.cuda.empty_cache()
+
+        reset_launches()
+        t0 = time.time()
+        summary = detect.anomalous_metric_calculation(
+            token=MRI_CONFIG, root_dir=root, max_volumes=1, device=DEVICE)
+        torch.cuda.synchronize()
+        wall = parts["detection"] = time.time() - t0
+        got = torch_launches()
+        with open(os.path.join(root, "metrics", f"args{MRI_CONFIG}.csv")) as f:
+            csv = f.read().strip()
+        log(f"MRI detection: volume 17904, 4 slices, lambda {LAMBDA} DDPM: "
+            f"{wall:.2f} s including checkpoint load; launches K1 {got[0]}, "
+            f"K2 {got[1]}, K2b {got[2]}; csv {csv!r}")
+        require(tuple(got) == (LAMBDA + 1, sites * LAMBDA, 0),
+                f"MRI detection: launches {got}")
+        require(all(math.isfinite(summary[k]) for k in detect.METRIC_NAMES),
+                f"MRI detection metrics {summary}")
+        counts["mri_detect"] = list(got)
+        _, em, esched = detect._load_eval_model(root, MRI_CONFIG, device=DEVICE)
+        sample = anomalous_dataset_from_args(root, targs)[0]
+        require(sample["image"].shape == (4, *targs["img_size"], 1) and sample["mask"].sum() > 0,
+                f"MRI sample {sample['image'].shape}, mask {sample['mask'].sum()}")
+        gen = torch.Generator(device=DEVICE).manual_seed(5)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out, _ = detect.evaluate_anomaly_batch(em, esched, sample["image"],
+                                               sample["mask"], gen,
+                                               sampler_from_args(targs), LAMBDA)
+        torch.cuda.synchronize()
+        group_s = parts["steady group"] = time.time() - t0
+        log(f"MRI steady volume group ({card}): {group_s:.3f} s = "
+            f"{4 / group_s:.3f} slices/s, {group_s / LAMBDA * 1e3:.3f} ms per "
+            f"reverse step; AUC {sum(out['auc']) / 4:.4f}")
+        del em
+        torch.cuda.empty_cache()
+
+        t0 = time.time()
+        dinspect.inspect(targs, root_dir=root, mode="compare")
+        sheets = sorted(os.listdir(os.path.join(root, "inspection-outputs",
+                                                f"ARGS={MRI_CONFIG}")))
+        require(sheets == [f"sheet-{i}.png" for i in range(5)], f"inspect wrote {sheets}")
+        parts["inspect"] = time.time() - t0
+        log(f"inspect compare: {len(sheets)} sheets")
+    log("MRI phase by part (s): " + ", ".join(f"{k} {v:.2f}" for k, v in parts.items()))
+    return counts, windows, 4 / group_s, k2b_worst
+
+
+def check_noise_kinds():
+    """K1's parameters-from-device entry against its plain version at all 23
+    RAND_PARAM_TABLE triples (n = 4, 256^2, K1's standing rule); the volume
+    through K1 against the plain volume; the table and 2-D paths on the card
+    against the same calls on the CPU, with their ms per field batch."""
+    from anoddpm_torch.ops import simplex as sx
+    from anoddpm_torch.ops.noise import RAND_PARAM_TABLE
+    hw = NOISE_HW
+    gen = torch.Generator(device=DEVICE).manual_seed(23)
+    seeds = torch.randint(0, 1 << 32, (BATCH,), generator=gen, device=DEVICE,
+                          dtype=torch.int64)
+    t = torch.tensor([0.0, 57.0, 123.0, 199.0], device=DEVICE)
+    worst = 0.0
+    for octaves, pers, freq in RAND_PARAM_TABLE:
+        params = torch.tensor([octaves, pers, freq], device=DEVICE)
+        got = sx.batched_fractal3_fixed_t_params(seeds, t, hw, params)
+        want = sx._fractal3_fixed_t_params_plain(seeds, t, hw, params)
+        diff = (got - want).abs()
+        within = (diff <= K1_TOL).float().mean().item()
+        worst = max(worst, diff.max().item())
+        require(torch.isfinite(got).all() and within >= 0.997,
+                f"K1 params ({octaves}, {pers}, {freq}): {within:.5f} within {K1_TOL}")
+    params = torch.tensor(RAND_PARAM_TABLE[3], dtype=torch.float32, device=DEVICE)
+    dev_params = graph_ms(lambda: sx.batched_fractal3_fixed_t_params(seeds, t, hw, params), reps=10)
+    pers, freq = float(params[1]), float(params[2])
+    dev_static = graph_ms(lambda: sx.batched_fractal3_fixed_t(
+        seeds, t, hw, 10, pers, freq), reps=10)
+    log(f"K1 parameters-from-device entry: all {len(RAND_PARAM_TABLE)} triples at "
+        f"n={BATCH} {hw[0]}x{hw[1]} within rule (worst max|d| {worst:.3e}); at (10, 0.8, "
+        f"64) {dev_params:.4f} ms device-only vs the static entry's {dev_static:.4f} ms")
+
+    seed = torch.tensor(12345, device=DEVICE)
+    z = NOISE_VOLUME_Z
+    vol = sx.fractal3_volume_hash(seed, (z,) + hw, 1, 0.5, 32.0)
+    plain = sx._fractal3_fixed_t_plain(seed.reshape(1).expand(z).contiguous(),
+                                       torch.arange(z, dtype=torch.float32, device=DEVICE),
+                                       hw, 1, 0.5, 32.0)
+    within = ((vol - plain).abs() <= K1_TOL).float().mean().item()
+    require(within >= 0.997, f"volume: {within:.5f} within {K1_TOL}")
+    worst = max(worst, (vol - plain).abs().max().item())
+    log(f"simplex volume ({z}, {hw[0]}, {hw[1]}) through K1: {within:.6f} of voxels within "
+        f"{K1_TOL} of the plain volume")
+
+    perms, gids = sx.perm_tables(BATCH, gen)
+    table = lambda: sx.batched_fractal3_fixed_t_table(perms, gids, t, hw, 6, 0.8, 64.0)
+    card = table()
+    t0 = time.time()
+    cpu = sx.batched_fractal3_fixed_t_table(perms.cpu(), gids.cpu(), t.cpu(), hw,
+                                            6, 0.8, 64.0)
+    cpu_s = time.time() - t0
+    within_t = ((card.cpu() - cpu).abs() <= K1_TOL).float().mean().item()
+    table_ms = cuda_ms(table, 5)
+    fields2 = lambda: sx.batched_fractal2(seeds, hw, 6, 0.8, 64.0)
+    card2 = fields2()
+    t0 = time.time()
+    cpu2 = sx.batched_fractal2(seeds.cpu(), hw, 6, 0.8, 64.0)
+    cpu2_s = time.time() - t0
+    within_2 = ((card2.cpu() - cpu2).abs() <= K1_TOL).float().mean().item()
+    ms_2 = cuda_ms(fields2, 5)
+    require(within_t >= 0.997 and within_2 >= 0.997,
+            f"table {within_t:.5f}, 2-D {within_2:.5f} within {K1_TOL} of the CPU")
+    log(f"plain PyTorch on the card, n={BATCH} fields of {hw[0]}x{hw[1]}, 6 octaves: "
+        f"table path {table_ms:.3f} ms per field batch ({within_t:.6f} within "
+        f"{K1_TOL} of the CPU), 2-D hash path {ms_2:.3f} ms ({within_2:.6f}); "
+        f"the CPU's calls took {cpu_s:.2f} s and {cpu2_s:.2f} s")
+    return worst
+
+
+def texture_fixtures(root):
+    """DATASETS/leather (MVTec: train/good, test/<class>, ground_truth) and
+    DATASETS/CARPET/Class1_def (DAGM with labels.txt) at 64 x 64, as PNGs
+    written by the port's encoder from a fixed seed."""
+    import numpy as np
+    from anoddpm_torch.data.datasets import MVTec
+    from anoddpm_torch.visualize import encode_png
+    rng = np.random.default_rng(64)
+    yy, xx = np.mgrid[0:64, 0:64]
+
+    def texture(channels):
+        base = np.sin(xx / rng.uniform(2, 5)) * np.cos(yy / rng.uniform(2, 5))
+        img = np.stack([base * rng.uniform(40, 80) + 128 + rng.normal(0, 8, base.shape)
+                        for _ in range(channels)], -1)
+        img = np.clip(img, 0, 255).astype(np.uint8)
+        return img[..., 0] if channels == 1 else img
+
+    def put(path, img):
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, "wb") as f:
+            f.write(encode_png(img))
+
+    leather = os.path.join(root, "DATASETS", "leather")
+    put(os.path.join(leather, "train", "good", "000.png"), texture(3))
+    for cls in MVTec.CLASSES:
+        img = texture(3)
+        mask = np.zeros((64, 64), np.uint8)
+        mask[20:40, 24:44] = 255
+        img[mask > 0] = 255 - img[mask > 0]
+        put(os.path.join(leather, "test", cls, "000.png"), img)
+        put(os.path.join(leather, "ground_truth", cls, "000_mask.png"), mask)
+    carpet = os.path.join(root, "DATASETS", "CARPET", "Class1_def")
+    for i in (1, 2):
+        put(os.path.join(carpet, f"{i}.png"), texture(1))
+    with open(os.path.join(carpet, "labels.txt"), "w") as f:
+        f.write("1\t12.0\t6.0\t1.2\t32.0\t30.0\n2\t9.0\t7.0\t3.1\t28.0\t36.0\n")
+
+
+def texture_passes(sites_of):
+    """One detection pass each, at 32^2 and lambda = SMALL_T, with exact
+    launch counts: the DAGM carpet fixture through
+    `anomalous_metric_calculation`, and the MVTec leather fixture (3
+    channels) through `evaluate_anomaly_batch` with its (H, W, 1) mask
+    repeated over the channels here: the JAX package's metrics and heatmaps
+    take a mask of the image's channels, and so do the port's."""
+    import numpy as np
+    from anoddpm_torch import detect
+    from anoddpm_torch.config import defaultdict_from_json
+    from anoddpm_torch.data.datasets import anomalous_dataset_from_args
+    from anoddpm_torch.models.unet import UNet
+    from anoddpm_torch.ops.noise import sampler_from_args
+    from anoddpm_torch.schedule import schedule_from_args
+    counts = [0, 0, 0]
+    lam = min(LAMBDA, SMALL_T)
+    with tempfile.TemporaryDirectory() as root:
+        texture_fixtures(root)
+        for name, channels in (("leather", 3), ("carpet", 1)):
+            args = defaultdict_from_json({**small_suite_args(), "dataset": name,
+                                          "arg_num": f"small{name}"})
+            torch.manual_seed(7)
+            model = UNet(img_size=32, base_channels=32, in_channels=channels,
+                         channel_mults=(1, 2), attention_resolutions="16").to(DEVICE).eval()
+            sched = schedule_from_args(args).to(DEVICE)
+            reset_launches()
+            if channels == 1:
+                summary = detect.anomalous_metric_calculation(
+                    args, root_dir=root, em=model, sched=sched, max_volumes=1,
+                    t_distance=lam, device=DEVICE)
+            else:
+                sample = anomalous_dataset_from_args(root, args)[0]
+                mask = np.repeat(sample["mask"], channels, axis=-1)
+                out, recon = detect.evaluate_anomaly_batch(
+                    model, sched, sample["image"], mask,
+                    torch.Generator(device=DEVICE).manual_seed(8),
+                    sampler_from_args(args), lam)
+                require(recon.shape == (1, 32, 32, 3), f"leather recon {recon.shape}")
+                summary = {k: float(np.mean(v)) for k, v in out.items()}
+            got = torch_launches()
+            want = (lam + 1, sites_of(model) * lam, 0)
+            log(f"{name} detection pass (32^2, {channels} channel(s), lambda {lam}): "
+                f"AUC {summary['auc']:.4f}; launches K1 {got[0]}, K2 {got[1]}, "
+                f"K2b {got[2]}")
+            require(tuple(got) == want, f"{name}: launches {got} != {want}")
+            require(all(math.isfinite(summary[k]) for k in detect.METRIC_NAMES),
+                    f"{name}: metrics {summary}")
+            counts = [a + b for a, b in zip(counts, got)]
+    return counts
+
+
 class Tee(io.TextIOBase):
     """Writes to `out` and keeps a copy."""
 
@@ -1196,11 +1674,22 @@ def main():
     from anoddpm_torch.config import load_args
 
     t_start = time.time()
+    phases, mark = {}, [t_start]
+
+    def phase(what):
+        now = time.time()
+        phases[what] = now - mark[0]
+        mark[0] = now
+
     name = device_info()
     build_kernels()
     writers = probe_writers()
+    phase("build")
     k1_row = check_k1()
     k1_worst, _ = check_k1_shapes()
+    phase("K1 checks")
+    k1_worst = max(k1_worst, check_noise_kinds())
+    phase("noise kinds")
     args = load_args(CONFIG, config_dir=os.path.join(ROOT, "configs"))
     model = seeded_model(args)
     sites = k2_sites(model)
@@ -1209,9 +1698,13 @@ def main():
     k2b_row = check_k2b(sites)
     check_small_chain()
     check_small_train()
-    counts = {"detect": main_path(model, args, len(sites)),
-              "ddim": ddim_path(model, args, len(sites)),
-              "graph": graph_path(model, args, len(sites))}
+    phase("K2 and K2b checks")
+    counts = {"detect": main_path(model, args, len(sites))}
+    phase("detection")
+    counts["ddim"] = ddim_path(model, args, len(sites))
+    phase("DDIM")
+    counts["graph"] = graph_path(model, args, len(sites))
+    phase("graph")
     del model
     torch.cuda.empty_cache()
     card = subprocess.run(
@@ -1219,8 +1712,19 @@ def main():
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     with tempfile.TemporaryDirectory() as train_root:
         counts["train"] = train_path(args, len(sites), card, train_root)
+        phase("training")
         counts["roc"] = roc_path(train_root, len(sites))
+        phase("ROC")
     counts["small_suite"] = small_suite(writers)
+    phase("32^2 suite")
+    from anoddpm_torch.models.unet import NormSiLU
+    counts["texture"] = texture_passes(
+        lambda m: sum(isinstance(x, NormSiLU) for x in m.modules()))
+    phase("texture passes")
+    mri_counts, _, _, k2b_worst = mri_path(card)
+    phase("MRI configuration")
+    counts.update(mri_counts)
+    k2b_row["max_abs_err"] = max(k2b_row["max_abs_err"], k2b_worst)
     k1_row["max_abs_err"] = max(k1_row["max_abs_err"], k1_worst)
     k2_row["max_abs_err"] = max(k2_row["max_abs_err"], k2_worst)
     rows = (k1_row, k2_row, k2b_row)
@@ -1229,6 +1733,7 @@ def main():
         row["launches"] = sum(row["launches_by_path"].values())
         row.setdefault("library_device_ms", None)
         row.setdefault("note", None)
+    log("phases (s): " + ", ".join(f"{k} {v:.1f}" for k, v in phases.items()))
     log(f"total {time.time() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches",
             "launches_by_path", "max_abs_err", "ms", "device_ms",

@@ -116,6 +116,58 @@ def test_simplex_kernel_takes_other_dtypes_and_strides(cuda):
     torch.testing.assert_close(got, want, atol=0, rtol=0)
 
 
+def _rand_param_rows():
+    from anoddpm_torch.ops.noise import RAND_PARAM_TABLE
+    return RAND_PARAM_TABLE
+
+
+@pytest.mark.parametrize("row", range(23))
+def test_simplex_kernel_params_from_device(cuda, row):
+    """K1's parameters-from-device entry at each RAND_PARAM_TABLE triple:
+    one launch counted with K1's, against its masked plain version and
+    equal to the static entry at the same triple."""
+    octaves, pers, freq = _rand_param_rows()[row]
+    gen = torch.Generator(device=cuda).manual_seed(20 + row)
+    seeds = torch.randint(0, 1 << 32, (4,), generator=gen, device=cuda,
+                          dtype=torch.int64)
+    t = torch.tensor([0.0, 57.0, 123.0, 199.0], device=cuda)
+    params = torch.tensor([octaves, pers, freq], device=cuda)
+    before = sx.batched_fractal3_fixed_t.launches
+    got = sx.batched_fractal3_fixed_t_params(seeds, t, (96, 80), params)
+    assert sx.batched_fractal3_fixed_t.launches == before + 1
+    want = sx._fractal3_fixed_t_params_plain(seeds, t, (96, 80), params)
+    assert torch.isfinite(got).all()
+    assert ((got - want).abs() <= 1e-5).float().mean().item() >= 0.997
+    static = sx.batched_fractal3_fixed_t(seeds, t, (96, 80), octaves,
+                                         float(params[1]), float(params[2]))
+    torch.testing.assert_close(got, static, atol=0, rtol=0)
+
+
+def test_noise_kinds_on_the_card_without_sync(cuda):
+    """randParam, random and the volume draw on the card with one K1 launch
+    each and no host sync; the table and 2-D kinds run as plain PyTorch."""
+    from anoddpm_torch.ops import noise
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    t = torch.tensor([5, 40], device=cuda)
+    for kind in ("simplex_randParam", "random"):
+        sampler = noise.make_noise_sampler(kind)
+        before = sx.batched_fractal3_fixed_t.launches
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = sampler((2, 1, 64, 64), t, gen)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert sx.batched_fractal3_fixed_t.launches == before + 1
+        assert out.is_cuda and torch.isfinite(out).all()
+    before = sx.batched_fractal3_fixed_t.launches
+    vol = noise.simplex_volume_noise((5, 32, 48), gen, octaves=3)
+    assert vol.shape == (5, 32, 48)
+    assert sx.batched_fractal3_fixed_t.launches == before + 1
+    for kind, table in (("simplex", True), ("simplex_2d", False)):
+        out = noise.make_noise_sampler(kind, table=table)((2, 1, 32, 32), t, gen)
+        assert out.is_cuda and torch.isfinite(out).all()
+
+
 def _check_group_norm_silu(x, gamma, beta):
     """One K2 call against the plain version: output within atol = rtol =
     1e-4 (fp32) or one bf16 ulp (1e-4 floor), mean and rstd within 1e-5."""

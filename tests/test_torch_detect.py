@@ -136,8 +136,8 @@ def test_metric_calculation_writes_csv(tmp_path):
 
 
 def test_unported_parts_raise(tmp_path, monkeypatch):
-    """DDIM and the graph mode run now; the context-encoder curve, a mesh,
-    the randParam noise and the real-data families name their ROADMAP item
+    """DDIM, the graph mode, the randParam noise and the real-data families
+    run now; the context-encoder curve and a mesh name their ROADMAP item
     instead of running something else."""
     port = UNet(**CONFIGS["s2d1"]).eval()
     sched = ts.make_schedule(ts.get_beta_schedule(T, "cosine"))
@@ -161,12 +161,16 @@ def test_unported_parts_raise(tmp_path, monkeypatch):
         tdetect.graph_data(token="gr", mesh=object(), device="cpu")
     rand = defaultdict_from_json({**ARGS, "arg_num": "rp",
                                   "noise_fn": "simplex_randParam"})
-    with pytest.raises(NotImplementedError, match="ROADMAP.*noise variants"):
-        tdetect.anomalous_metric_calculation(
-            rand, root_dir=str(tmp_path), em=port, sched=sched, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        anomalous_dataset_from_args(".", defaultdict_from_json(
-            {"img_size": (32, 32), "dataset": "mri"}))
+    summary = tdetect.anomalous_metric_calculation(
+        rand, root_dir=str(tmp_path), em=port, sched=sched, max_volumes=1,
+        device="cpu")
+    assert all(np.isfinite(summary[k]) for k in METRICS)
+    from anoddpm_torch.data.datasets import AnomalousMRIDataset
+    mri = anomalous_dataset_from_args(".", defaultdict_from_json(
+        {"img_size": (32, 32), "dataset": "mri"}))
+    assert isinstance(mri, AnomalousMRIDataset) and len(mri) == 22
+    assert mri.root_dir == os.path.join(".", "DATASETS", "CancerousDataset",
+                                        "EdinburghDataset", "Anomalous-T1")
 
 
 def test_metric_calculation_repeats_and_volume_batch(tmp_path):

@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: importing it loads no JAX, flax or
 anoddpm_tpu (nor pandas, matplotlib or imageio, which only its writers
-import when called), no source of it names them, and its entry points refuse to
+import when called, nor cv2, PIL or nibabel, which the card's machine
+lacks), no source of it names them, and its entry points refuse to
 fall back to the CPU quietly when there is no card."""
 import pathlib
 import re
@@ -21,9 +22,13 @@ def test_import_loads_no_jax():
             "anoddpm_torch.models.ema, anoddpm_torch.data.pipeline, "
             "anoddpm_torch.data.datasets, anoddpm_torch.compat.flax_params, "
             "anoddpm_torch.visualize, anoddpm_torch.graphs, "
-            "anoddpm_torch.metrics, anoddpm_torch.diffusion; "
+            "anoddpm_torch.metrics, anoddpm_torch.diffusion, "
+            "anoddpm_torch.data.nifti, anoddpm_torch.data.transforms, "
+            "anoddpm_torch.data.preprocess, anoddpm_torch.data.inspect, "
+            "anoddpm_torch.data.synthetic, anoddpm_torch.ops.noise, "
+            "anoddpm_torch.ops.simplex; "
             "bad = [m for m in ('jax', 'flax', 'optax', 'anoddpm_tpu', "
-            "'pandas', 'matplotlib', 'imageio') "
+            "'pandas', 'matplotlib', 'imageio', 'cv2', 'PIL', 'nibabel') "
             "if m in sys.modules]; print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
@@ -38,6 +43,14 @@ def test_sources_import_no_jax():
     assert len(files) > 10
     offenders = [str(f) for f in files if pattern.search(f.read_text())]
     assert not offenders
+
+
+def test_sources_import_no_image_packages():
+    """cv2, PIL and nibabel are not on the card's machine: the port reads
+    NIfTI, PNG and draws its masks itself."""
+    pattern = re.compile(r"^\s*(import|from)\s+(cv2|PIL|nibabel)\b", re.MULTILINE)
+    files = sorted((ROOT / "anoddpm_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert [str(f) for f in files if pattern.search(f.read_text())] == []
 
 
 def test_entry_points_refuse_without_cuda(monkeypatch, tmp_path):
@@ -71,6 +84,11 @@ def test_kernel_wrappers_refuse_other_devices():
     with pytest.raises(ValueError):
         batched_fractal3_fixed_t(torch.zeros(1, dtype=torch.int64, device="meta"),
                                  torch.zeros(1, device="meta"), (4, 4))
+    from anoddpm_torch.ops.simplex import batched_fractal3_fixed_t_params
+    with pytest.raises(ValueError):
+        batched_fractal3_fixed_t_params(
+            torch.zeros(1, dtype=torch.int64, device="meta"),
+            torch.zeros(1, device="meta"), (4, 4), torch.zeros(3, device="meta"))
     from anoddpm_torch.ops.group_norm_silu import group_norm_silu_backward
     stats = torch.zeros((1, 32), device="meta")
     with pytest.raises(ValueError):

@@ -85,7 +85,8 @@ def test_samplers_from_args():
     a = g((2, 1, 4, 4), None, torch.Generator().manual_seed(5))
     assert torch.equal(a, g((2, 1, 4, 4), None, torch.Generator().manual_seed(5)))
     for kind in ("simplex_randParam", "simplex_2d", "random"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tnoise.make_noise_sampler(kind)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tnoise.sampler_from_args({"noise_fn": "simplex", "simplex_table": True})
+        out = tnoise.make_noise_sampler(kind)((2, 1, 8, 8), torch.tensor([3, 3]), gen)
+        assert out.shape == (2, 1, 8, 8) and torch.isfinite(out).all()
+    s = tnoise.sampler_from_args({"noise_fn": "simplex", "simplex_table": True})
+    assert s.fingerprint == ("simplex", 6, 0.8, 64.0, False, True)
+    assert s((1, 1, 8, 8), torch.tensor([3]), gen).shape == (1, 1, 8, 8)

@@ -253,8 +253,8 @@ def test_cli_modes_run_on_the_cpu(jax_checkpoint, monkeypatch, tmp_path, capsys)
 
 
 def test_unported_sweep_parts_raise(jax_checkpoint, monkeypatch, tmp_path):
-    """The context-encoder curve, a mesh and the randParam noise name their
-    ROADMAP items."""
+    """The context-encoder curve and a mesh name their ROADMAP items; the
+    randParam noise runs validation now."""
     os.symlink(jax_checkpoint / "model", tmp_path / "model")
     monkeypatch.chdir(tmp_path)
     with pytest.raises(NotImplementedError, match="ROADMAP.*context-encoder"):
@@ -263,11 +263,11 @@ def test_unported_sweep_parts_raise(jax_checkpoint, monkeypatch, tmp_path):
         tdetect.graph_data(token="sw", mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.*data parallel"):
         tdetect.roc_data(["sw"], mesh=object(), device="cpu")
-    em = torch.nn.Conv2d(1, 1, 1)
     args = defaultdict_from_json({**ARGS, "arg_num": "rp",
                                   "noise_fn": "simplex_randParam"})
-    with pytest.raises(NotImplementedError, match="ROADMAP.*noise variants"):
-        tdetect.anomalous_validation((args, em, ts.make_schedule(
-            ts.get_beta_schedule(T, "cosine"))), root_dir=str(tmp_path))
+    dice = tdetect.anomalous_validation((args, TinyTorch((0.5, 0.0)), ts.make_schedule(
+        ts.get_beta_schedule(T, "cosine"))), root_dir=str(tmp_path),
+        max_volumes=1, max_slices=1, detection_avg=1)
+    assert len(dice) == 1
     assert tdetect._auto_lambda_batch(256) == 32
     assert tdetect._auto_lambda_batch(32) == 128 and tdetect._auto_lambda_batch(1024) == 8

@@ -262,9 +262,12 @@ def test_data_pipeline_matches_jax():
     assert fetched["image"].shape == (3, 1, 32, 32)
     np.testing.assert_array_equal(fetched["image"].numpy(),
                                   first.transpose(0, 3, 1, 2))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dataset_from_args(".", defaultdict_from_json({"img_size": (32, 32),
-                                                      "dataset": "mri"}))
+    # "mri" reads DATASETS/ under the root, as the JAX package does
+    from anoddpm_tpu.data.datasets import dataset_from_args as jax_dataset
+    mri = defaultdict_from_json({"img_size": (32, 32), "dataset": "mri"})
+    for fn in (dataset_from_args, jax_dataset):
+        with pytest.raises(FileNotFoundError, match="DATASETS"):
+            fn(str(os.getcwd()), mri)
 
 
 def test_psnr_equals_jax():
