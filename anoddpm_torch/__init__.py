@@ -14,7 +14,11 @@ Partial-diffusion anomaly detection with multi-octave simplex noise, as in
 - the headline detection protocol (`python -m anoddpm_torch.detect`),
 - training with AdamW and an EMA, checkpoints that resume from the port's
   or the JAX package's, and the test-set suite
-  (`python -m anoddpm_torch.train`).
+  (`python -m anoddpm_torch.train`), data-parallel under `torchrun`
+  (`anoddpm_torch.parallel`), with remat and substeps,
+- the context-encoder baseline (`anoddpm_torch.baselines`), the paper's
+  figures (`anoddpm_torch.figures`) and the import of the reference's
+  PyTorch checkpoints (`anoddpm_torch.compat.torch_import`).
 
 The package never imports `jax`, `flax` or `anoddpm_tpu`; it keeps its own
 copies of the JAX-free pieces it needs.  Importing it imports nothing heavy.

@@ -7,7 +7,13 @@ is a walk over the nested dict of numpy arrays:
 - dense kernels (I, O) become weights (O, I);
 - `GroupNorm_0/{scale, bias}` become the norm's `weight` / `bias`;
 - the fused-norm names `{name}_pscale` / `{name}_pbias`
-  (`pallas_norm: true` in the JAX package) map onto the same norm weights.
+  (`pallas_norm: true` in the JAX package) map onto the same norm weights;
+- the UNet options `biggan_updown=False` (`down_sample_i` / `up_sample_i`
+  are convs) and `use_conv_skip` (a 3 x 3 `skip` kernel) need nothing
+  more: their kernels walk like any other.
+
+`context_encoder_state_dict_from_flax` converts the context encoder's
+auto-named `Conv_i` / `GroupNorm_i` into the port's `convs.i` / `norms.i`.
 
 The optimizer state carried across: the optax chain of the JAX trainer
 (clip_by_global_norm, then adamw) keeps Adam's `count`, `mu` and `nu`,
@@ -58,6 +64,22 @@ def unet_state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
             raise KeyError(f"two flax parameters map onto {key}")
         out[key] = torch.from_numpy(np.array(value, np.float32))
     return out
+
+
+def context_encoder_state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """Port `state_dict` of `models.context_encoder.ContextEncoder` from the
+    flax `ContextEncoder`'s params."""
+    if "params" in params:
+        params = params["params"]
+    renamed = {}
+    for name, leaves in params.items():
+        kind, _, index = name.rpartition("_")
+        prefix = {"Conv": "convs", "GroupNorm": "norms"}.get(kind)
+        if prefix is None:
+            raise KeyError(f"unexpected flax module {name}")
+        renamed[f"{prefix}.{index}"] = ({"GroupNorm_0": leaves}
+                                         if kind == "GroupNorm" else leaves)
+    return unet_state_dict_from_flax(renamed)
 
 
 def _find_adam_state(tree: Any):

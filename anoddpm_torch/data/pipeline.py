@@ -3,9 +3,10 @@ device.
 
 Own copy of `anoddpm_tpu/data/pipeline.py:19-58` (`cycle`,
 `batch_iterator`, numpy only).  `prefetch_to_device` is the port's: a
-background thread turns each NHWC numpy batch into an NCHW tensor, pins
-it and copies it to the card with `non_blocking=True`, so that the copy
-overlaps the steps before it.
+background thread stacks substeps, keeps this rank's rows under a mesh,
+turns each NHWC numpy batch into an NCHW tensor, pins it and copies it to
+the card with `non_blocking=True`, so that the copy overlaps the steps
+before it.
 """
 
 from __future__ import annotations
@@ -58,9 +59,10 @@ def batch_iterator(dataset, batch_size: int, shuffle: bool = True,
 
 
 def to_nchw(array: np.ndarray) -> torch.Tensor:
-    """An NHWC numpy batch as a contiguous NCHW float32 tensor (a copy)."""
+    """An NHWC numpy batch (or (S, B, H, W, C) substeps) as a contiguous
+    NCHW float32 tensor (a copy)."""
     return torch.from_numpy(np.ascontiguousarray(
-        np.asarray(array).transpose(0, 3, 1, 2), np.float32))
+        np.moveaxis(np.asarray(array), -1, -3), np.float32))
 
 
 def to_nhwc(x: torch.Tensor) -> np.ndarray:
@@ -76,23 +78,52 @@ class _Failed:
         self.error = error
 
 
+def stack_substeps(it: Iterator, substeps: int):
+    """Groups of `substeps` consecutive batches as one: every ndarray value
+    gains a leading substep axis, (substeps, B, ...), so that masks stay
+    aligned with images, and every other value becomes the list of the
+    per-substep values.  A partial group at the end is dropped."""
+    while True:
+        group = []
+        for _ in range(substeps):
+            try:
+                group.append(next(it))
+            except StopIteration:
+                return
+        batch: Dict[str, object] = {}
+        for k in group[0]:
+            vals = [g[k] for g in group]
+            batch[k] = np.stack(vals) if isinstance(vals[0], np.ndarray) else vals
+        yield batch
+
+
 def prefetch_to_device(it: Iterator, device: torch.device, size: int = 2,
-                       keys=("image",)):
+                       keys=("image",), substeps: int = 1, mesh=None):
     """Yield `it`'s batches with the NHWC arrays under `keys` as NCHW
     tensors on `device`, prepared `size` batches ahead on a background
     thread (pinned and copied asynchronously when `device` is a card).
-    An exception in the thread is raised here; closing the generator stops
+
+    With `substeps` > 1 each item stacks that many batches
+    (`stack_substeps`): the tensors are (substeps, B, C, H, W).  Under a
+    `parallel.Mesh` the arrays under `keys` keep this rank's rows of every
+    step's global batch (every rank iterates the same seeded order).  An
+    exception in the thread is raised here; closing the generator stops
     the thread."""
     device = torch.device(device)
     q: "queue.Queue" = queue.Queue(maxsize=size)
     stop = threading.Event()
     done = object()
+    source = stack_substeps(iter(it), substeps) if substeps > 1 else it
+    batch_axis = 1 if substeps > 1 else 0
 
     def place(batch):
         out = dict(batch)
         for k in keys:
             if k in out and isinstance(out[k], np.ndarray):
-                t = to_nchw(out[k])
+                arr = out[k]
+                if mesh is not None:
+                    arr = mesh.shard_batch(arr, batch_axis)
+                t = to_nchw(arr)
                 if device.type == "cuda":
                     t = t.pin_memory().to(device, non_blocking=True)
                 out[k] = t.to(device)
@@ -108,7 +139,7 @@ def prefetch_to_device(it: Iterator, device: torch.device, size: int = 2,
 
     def producer():
         try:
-            for item in it:
+            for item in source:
                 if stop.is_set():
                     return
                 put(place(item))

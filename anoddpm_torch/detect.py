@@ -15,16 +15,22 @@ Counterpart of `anoddpm_tpu/detect.py` on one card.  Modes:
 - ``graph`` (``DENSE``, ``STEP=s``, ``VOLS=n``, ``LB=b``): per-lambda
   metric curves, the lambda grid riding the batch axis
   (`graph_data`).
-- ``roc <ARG_NUM2> ...`` (``LESION=kind[:severity]``): the pixel ROC
-  comparison of several checkpoints (`roc_data`).
+- ``roc <ARG_NUM2> ...`` (``LESION=kind[:severity]``, ``CE=<cfg>``): the
+  pixel ROC comparison of several checkpoints (`roc_data`), with the
+  context-encoder baseline trained on <cfg>'s healthy set.
 - ``methodA`` / ``methodB``: detection methods A and B on the first
   anomalous slice.
 
 The artifact paths and CSV headers are the JAX package's.  Images and
 masks cross the public functions as NHWC numpy arrays.  The entry points
-run on the card unless the caller passes `device="cpu"`.  Not ported yet,
-and raising with their ROADMAP item: the context-encoder curve (``CE=``),
-every `mesh` argument, and the noise kinds of Queue 1 item 5.
+run on the card unless the caller passes `device="cpu"`.
+
+Data parallel (`parallel.mesh`): under ``torchrun --nproc_per_node=N``
+the ``metrics`` mode runs `sharded_anomalous_metrics`; `graph_data` and
+`roc_data` take a `mesh` too.  Each rank reconstructs its rows of every
+batch, drawing the noise of the whole batch from a generator seeded alike
+on every rank, so N ranks compute what one computes; rank 0 gathers the
+reconstructions, scores them and writes the files.
 """
 
 from __future__ import annotations
@@ -48,20 +54,41 @@ from .data.pipeline import to_nchw, to_nhwc
 from .device import DeviceLike, resolve_device
 from .models.unet import unet_from_args
 from .ops.noise import make_noise_sampler, sampler_from_args
+from .parallel.mesh import Mesh, close_mesh, mesh_from_env, shard_sampler
 from .schedule import schedule_from_args
 
 METRIC_NAMES = ("dice", "ssim", "iou", "precision", "recall", "fpr", "auc")
 _USAGE = ("usage: python -m anoddpm_torch.detect [CHECKPOINT] <ARG_NUM> "
           "[metrics [VB=n] | validation | graph [DENSE] [STEP=s] [VOLS=n] "
-          "[LB=b] | roc <ARG_NUM2>... [LESION=kind[:severity]] | methodA | "
-          "methodB]")
+          "[LB=b] | roc <ARG_NUM2>... [CE=<cfg>] [LESION=kind[:severity]] | "
+          "methodA | methodB]\n       torchrun --nproc_per_node=N -m "
+          "anoddpm_torch.detect [CHECKPOINT] <ARG_NUM> [metrics]")
 _MODES = ("metrics", "validation", "graph", "roc", "methodA", "methodB")
 
 
-def _refuse_mesh(mesh) -> None:
+def _is_main(mesh: Optional[Mesh]) -> bool:
+    return mesh is None or mesh.is_main
+
+
+def _wrap_pad(block: np.ndarray, n: int, source: np.ndarray) -> np.ndarray:
+    """block grown to n rows with whole slices of `source` cycled from its
+    start (np.resize), so that every batch keeps one shape."""
+    pad = n - block.shape[0]
+    if not pad:
+        return block
+    return np.concatenate([block, np.resize(source, (pad,) + source.shape[1:])])
+
+
+def _sharded_recon(fb, x_np: np.ndarray, mesh: Optional[Mesh], device,
+                   generator) -> np.ndarray:
+    """fb(x, generator) over a global NHWC batch: this rank's rows on
+    `device`, gathered back to the whole NHWC batch (numpy)."""
+    local = x_np if mesh is None else mesh.shard_batch(x_np)
+    with torch.inference_mode():
+        recon = fb(to_nchw(local).to(device), generator)
     if mesh is not None:
-        raise NotImplementedError("a mesh is not ported yet (ROADMAP.md, "
-                                  "Queue 1: data parallel)")
+        recon = mesh.gather_rows(recon)
+    return to_nhwc(recon)
 
 
 def _device_of(em) -> torch.device:
@@ -197,6 +224,66 @@ def _write_metrics_csv(root_dir: str, arg_num, summary) -> None:
         for k in METRIC_NAMES:
             f.write(f"{summary[k]:.4f} +- {summary[k + '_std']:.4f},")
         f.write("\n")
+
+
+def _load_anomalous_slices(root_dir: str, args, max_volumes):
+    """Every anomalous slice of the first `max_volumes` volumes (all when
+    None): (images, masks), each (S, H, W, C)."""
+    d_set = anomalous_dataset_from_args(root_dir, args)
+    n = len(d_set) if max_volumes is None else min(len(d_set), max_volumes)
+    images, masks = [], []
+    for i in range(n):
+        sample = d_set[i]
+        img, msk = np.asarray(sample["image"]), np.asarray(sample["mask"])
+        images.append(img if img.ndim == 4 else img[None])
+        masks.append(msk if msk.ndim == 4 else msk[None])
+    return np.concatenate(images), np.concatenate(masks)
+
+
+def sharded_anomalous_metrics(args, em, sched, mesh: Optional[Mesh],
+                              root_dir: str = ".", t_distance: int = 200,
+                              max_volumes: Optional[int] = None,
+                              chunk_per_device: int = 16):
+    """The headline metrics over the ranks of `mesh` (one process when
+    None): every anomalous slice of the set, in chunks of
+    `chunk_per_device` x world_size slices (the last wrap-padded to that
+    size), each chunk split over the ranks and reconstructed by
+    `forward_backward` at lambda = `t_distance` (clamped to T) from a
+    generator seeded 17 + the chunk's first slice on every rank.  Rank 0
+    gathers the reconstructions, scores them with
+    `metrics.batched_anomaly_metrics`, writes metrics/args{n}.csv and
+    returns the summary; the other ranks return None."""
+    device = _device_of(em)
+    sched = sched.to(device)
+    t_distance = min(t_distance, sched.num_timesteps)
+    sampler = shard_sampler(sampler_from_args(args), mesh)
+    images, masks = _load_anomalous_slices(root_dir, args, max_volumes)
+    n_slices = images.shape[0]
+    w = 1 if mesh is None else mesh.world_size
+    chunk = min(w * max(chunk_per_device, 1), n_slices + (-n_slices) % w)
+
+    def fb(x, g):
+        return dmod.forward_backward(em, sched, x, t_distance, g,
+                                     noise_sampler=sampler)
+
+    recons = []
+    for start in range(0, n_slices, chunk):
+        block = images[start:start + chunk]
+        got = block.shape[0]
+        generator = torch.Generator(device=device).manual_seed(17 + start)
+        recon = _sharded_recon(fb, _wrap_pad(block, chunk, images), mesh,
+                               device, generator)
+        recons.append(recon[:got])
+    if not _is_main(mesh):
+        return None
+    recon = np.concatenate(recons)
+    per_slice = M.batched_anomaly_metrics(images, recon, masks)
+    summary = {}
+    for k, v in per_slice.items():
+        summary[k] = float(np.mean(v))
+        summary[k + "_std"] = float(np.std(v))
+    _write_metrics_csv(root_dir, args["arg_num"], summary)
+    return summary
 
 
 def _eval_inputs(args, root_dir, token, use_checkpoint, device):
@@ -400,7 +487,8 @@ def graph_data(args=None, root_dir: str = ".", token: Optional[str] = None,
                lambdas=None, max_volumes: int = 4,
                use_checkpoint: bool = False, dense: bool = False,
                lambda_batch: Optional[int] = None, slice_index: int = 1,
-               lambda_step: int = 1, mesh=None, device: DeviceLike = None):
+               lambda_step: int = 1, mesh: Optional[Mesh] = None,
+               device: DeviceLike = None):
     """Per-lambda metric curves on slice `slice_index` of up to
     `max_volumes` volumes: metrics/ARGS={n}/{volume}.csv (columns
     timestep,Dice,SSIM,IOU,Precision,Recall,FPR) with its plot {volume}.png,
@@ -412,12 +500,16 @@ def graph_data(args=None, root_dir: str = ".", token: Optional[str] = None,
     (default `_auto_lambda_batch` of the image size), each at its own
     lambda, go through one masked `forward_backward_batched_lambda` chain of
     max(lambdas) steps; the last chunk is padded with its first lambda.
-    Returns the pooled rows."""
-    _refuse_mesh(mesh)
+    Under a `mesh` the lambda batch (rounded up to a multiple of the world
+    size) is split over the ranks, and rank 0 scores and writes.  Returns
+    the pooled rows (None on the other ranks)."""
+    if mesh is not None and args is None:
+        device = mesh.device
     args, em, sched = _eval_inputs(args, root_dir, token, use_checkpoint,
                                    device)
     device = _device_of(em)
-    noise_sampler = sampler_from_args(args)
+    noise_sampler = shard_sampler(sampler_from_args(args), mesh)
+    main_rank = _is_main(mesh)
     if lambdas is None:
         lambdas = (range(0, sched.num_timesteps, lambda_step) if dense
                    else range(50, sched.num_timesteps, 50))
@@ -432,10 +524,15 @@ def graph_data(args=None, root_dir: str = ".", token: Optional[str] = None,
         img = img[0] if isinstance(img, (tuple, list)) else int(img)
         lambda_batch = _auto_lambda_batch(img)
     lambda_batch = min(lambda_batch, len(lambdas))
+    if mesh is not None:
+        lambda_batch = -(-lambda_batch // mesh.world_size) * mesh.world_size
+    rows_of = slice(None) if mesh is None else mesh.rows(lambda_batch)
+    local_batch = lambda_batch // (1 if mesh is None else mesh.world_size)
     d_set = anomalous_dataset_from_args(root_dir, args)
     n = min(len(d_set), max_volumes)
     vol_dir = os.path.join(root_dir, "metrics", f"ARGS={args['arg_num']}")
-    os.makedirs(vol_dir, exist_ok=True)
+    if main_rank:
+        os.makedirs(vol_dir, exist_ok=True)
     generator = torch.Generator(device=device).manual_seed(11)
     per_volume = []
     for i in range(n):
@@ -448,23 +545,28 @@ def graph_data(args=None, root_dir: str = ".", token: Optional[str] = None,
         x0 = np.asarray(img[s:s + 1])
         mask = np.asarray(msk[s:s + 1])
         vol_name = os.path.basename(str(sample.get("filenames", i)))
-        x_rep = to_nchw(x0).to(device).repeat(lambda_batch, 1, 1, 1)
+        x_rep = to_nchw(x0).to(device).repeat(local_batch, 1, 1, 1)
         curves = {m: np.empty(len(lambdas)) for m in METRIC_NAMES}
         for begin in range(0, len(lambdas), lambda_batch):
             lam_chunk = lambdas[begin:begin + lambda_batch]
             pad = lambda_batch - len(lam_chunk)
-            lamv = torch.tensor(lam_chunk + lam_chunk[:1] * pad,
+            lamv = torch.tensor((lam_chunk + lam_chunk[:1] * pad)[rows_of],
                                 dtype=torch.int64, device=device)
             with torch.inference_mode():
-                recon = to_nhwc(dmod.forward_backward_batched_lambda(
+                recon = dmod.forward_backward_batched_lambda(
                     em, sched, x_rep, lamv, max_t, generator,
-                    noise_sampler=noise_sampler))
+                    noise_sampler=noise_sampler)
+            recon = to_nhwc(recon if mesh is None else mesh.gather_rows(recon))
+            if not main_rank:
+                continue
             got = len(lam_chunk)
             batch_m = M.batched_anomaly_metrics(
                 np.broadcast_to(x0, (got,) + x0.shape[1:]), recon[:got],
                 np.broadcast_to(mask, (got,) + mask.shape[1:]))
             for m in METRIC_NAMES:
                 curves[m][begin:begin + got] = batch_m[m]
+        if not main_rank:
+            continue
         with open(os.path.join(vol_dir, f"{vol_name}.csv"), "w") as f:
             f.write("timestep,Dice,SSIM,IOU,Precision,Recall,FPR\n")
             for j, t in enumerate(lambdas):
@@ -476,6 +578,8 @@ def graph_data(args=None, root_dir: str = ".", token: Optional[str] = None,
         print(f"[{i + 1}/{n}] {vol_name}: peak dice "
               f"{curves['dice'].max():.4f} at lambda="
               f"{lambdas[int(curves['dice'].argmax())]}", flush=True)
+    if not main_rank:
+        return None
 
     pooled = ("dice", "ssim", "iou", "auc")
     rows = [{"t": t, **{m: float(np.mean([c[m][j] for c in per_volume]))
@@ -511,19 +615,23 @@ def _per_volume_lambda_plot(lambdas, curves, path):
 def roc_data(tokens, labels=None, root_dir: str = ".",
              t_distance: int = 200, max_volumes: Optional[int] = None,
              use_checkpoint: bool = False, ce_token: Optional[str] = None,
-             args_override=None, mesh=None, device: DeviceLike = None):
+             ce_train_steps: int = 2000, args_override=None,
+             mesh: Optional[Mesh] = None, device: DeviceLike = None):
     """The pixel ROC of each checkpoint in `tokens` over its anomalous set
     (lambda = `t_distance`, clamped to T; the raw square error as the
     score): metrics/roc-comparison.csv (<label>_fpr, <label>_tpr columns,
     downsampled) and final-outputs/roc-comparison.png; returns {label:
-    (fpr, tpr)}.  `args_override` entries are set in every checkpoint's
-    args (e.g. {"lesion_kind": "diffuse"})."""
-    if ce_token is not None:
-        raise NotImplementedError(
-            "the context-encoder curve (CE=) is not ported yet (ROADMAP.md, "
-            "Queue 1: tail, the context-encoder baseline)")
-    _refuse_mesh(mesh)
-    device = resolve_device(device)
+    (fpr, tpr)}.  `args_override` entries are set in every method's args
+    (e.g. {"lesion_kind": "diffuse"}).
+
+    `ce_token` adds the curve "context-encoder": the baseline
+    (`baselines.py`) trained for `ce_train_steps` on that config's healthy
+    set and scored on its anomalous set (metrics/args{n}-ce.csv).  Under a
+    `mesh` each volume's slices (wrap-padded to a multiple of the world
+    size) are split over the ranks; rank 0 trains the context encoder,
+    scores, writes and returns the curves, the other ranks return None."""
+    device = mesh.device if mesh is not None else resolve_device(device)
+    main_rank = _is_main(mesh)
     labels = labels or [f"args{t}" for t in tokens]
     curves = {}
     for token, label in zip(tokens, labels):
@@ -531,11 +639,16 @@ def roc_data(tokens, labels=None, root_dir: str = ".",
                                            device)
         for k, v in (args_override or {}).items():
             args[k] = v
-        noise_sampler = sampler_from_args(args)
+        noise_sampler = shard_sampler(sampler_from_args(args), mesh)
         td = min(t_distance, sched.num_timesteps)
         d_set = anomalous_dataset_from_args(root_dir, args)
         n = len(d_set) if max_volumes is None else min(len(d_set), max_volumes)
         generator = torch.Generator(device=device).manual_seed(13)
+
+        def fb(x, g):
+            return dmod.forward_backward(em, sched, x, td, g,
+                                         noise_sampler=noise_sampler)
+
         all_scores, all_labels = [], []
         for i in range(n):
             sample = d_set[i]
@@ -543,16 +656,34 @@ def roc_data(tokens, labels=None, root_dir: str = ".",
             masks = np.asarray(sample["mask"])
             if images.ndim == 3:
                 images, masks = images[None], masks[None]
-            with torch.inference_mode():
-                recon = to_nhwc(dmod.forward_backward(
-                    em, sched, to_nchw(images).to(device), td, generator,
-                    noise_sampler=noise_sampler))
+            w = 1 if mesh is None else mesh.world_size
+            block = _wrap_pad(images, images.shape[0] + (-images.shape[0]) % w,
+                              images)
+            recon = _sharded_recon(fb, block, mesh, device,
+                                   generator)[:images.shape[0]]
             all_scores.append(((images - recon) ** 2).reshape(-1))
             all_labels.append(masks.reshape(-1))
-        fpr, tpr, _ = M.roc_curve(np.concatenate(all_labels),
-                                  np.concatenate(all_scores))
-        curves[label] = (fpr, tpr)
-        print(f"{label}: AUC={M.auc(fpr, tpr):.4f}", flush=True)
+        if main_rank:
+            fpr, tpr, _ = M.roc_curve(np.concatenate(all_labels),
+                                      np.concatenate(all_scores))
+            curves[label] = (fpr, tpr)
+            print(f"{label}: AUC={M.auc(fpr, tpr):.4f}", flush=True)
+    if not main_rank:
+        return None
+
+    if ce_token is not None:
+        from . import baselines
+        from .config import load_args
+        ce_args = load_args(ce_token,
+                            config_dir=os.path.join(root_dir, "configs"))
+        for k, v in (args_override or {}).items():
+            ce_args[k] = v
+        ce_model = baselines.train_context_encoder(
+            ce_args, root_dir=root_dir, steps=ce_train_steps, device=device)
+        _, (ce_fpr, ce_tpr, _) = baselines.ce_anomalous_metrics(
+            ce_model, ce_args, root_dir=root_dir, max_volumes=max_volumes)
+        curves["context-encoder"] = (ce_fpr, ce_tpr)
+        print(f"context-encoder: AUC={M.auc(ce_fpr, ce_tpr):.4f}", flush=True)
 
     graphs.make_roc_csv(curves, os.path.join(root_dir, "metrics",
                                              "roc-comparison.csv"))
@@ -649,8 +780,20 @@ def main(argv=None, device: DeviceLike = None):
             if not a.startswith("VB="):
                 raise SystemExit(_USAGE)
             vb = int(a[3:])
-        anomalous_metric_calculation(token=token, use_checkpoint=use_checkpoint,
-                                     volume_batch=vb, device=device)
+        mesh = mesh_from_env(device)
+        if mesh is None:
+            anomalous_metric_calculation(token=token,
+                                         use_checkpoint=use_checkpoint,
+                                         volume_batch=vb, device=device)
+            return
+        try:
+            args, em, sched = _load_eval_model(".", token, use_checkpoint,
+                                               mesh.device)
+            summary = sharded_anomalous_metrics(args, em, sched, mesh)
+            if mesh.is_main:
+                print(summary)
+        finally:
+            close_mesh(mesh)
 
 
 if __name__ == "__main__":

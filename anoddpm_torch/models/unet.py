@@ -1,10 +1,13 @@
 """Guided-diffusion UNet epsilon-predictor as an `nn.Module`.
 
 Mirrors `anoddpm_tpu/models/unet.py`: ResBlocks with BigGAN-style in-block
-up/downsampling, QKV attention at the configured resolutions, a sinusoidal
-timestep embedding with a 2-layer SiLU MLP, GroupNorm(32) with fp32
-statistics, zero-initialised output projections and optional
-space-to-depth.  The layout is NCHW.
+up/downsampling (or, with `biggan_updown=False`, a strided 3 x 3 conv down
+and nearest x 2 then a 3 x 3 conv up), QKV attention at the configured
+resolutions, a sinusoidal timestep embedding with a 2-layer SiLU MLP,
+GroupNorm(32) with fp32 statistics, zero-initialised output projections,
+optional 3 x 3 skip convs (`ResBlock(use_conv_skip=True)`) and optional
+space-to-depth.
+The layout is NCHW.
 
 Submodules carry the flax tree's names (`down_0_0.norm_in`, `mid_attn.qkv`,
 `out_conv`, ...), so converting flax parameters is a tree walk
@@ -64,16 +67,28 @@ def lecun_normal_(weight: torch.Tensor, fan_in: int) -> torch.Tensor:
     return nn.init.trunc_normal_(weight, std=s, a=-2.0 * s, b=2.0 * s)
 
 
+def same_padding(size: int, kernel: int, stride: int) -> Tuple[int, int]:
+    """Flax/XLA "SAME" padding of one spatial axis: (low, high), the odd
+    pixel on the high side (a 3 x 3 kernel at stride 2 on an even size
+    pads (0, 1))."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + kernel - size, 0)
+    return total // 2, total - total // 2
+
+
 class Conv(nn.Module):
     """Conv2d with 'SAME' padding whose input and weight are cast to the
-    compute dtype (flax `nn.Conv(dtype=...)` with fp32 params)."""
+    compute dtype (flax `nn.Conv(dtype=...)` with fp32 params).  At a
+    stride above 1 the padding is applied explicitly, since flax's may be
+    asymmetric."""
 
     def __init__(self, cin: int, cout: int, kernel: int, dtype: torch.dtype,
-                 zero: bool = False):
+                 zero: bool = False, stride: int = 1):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(cout, cin, kernel, kernel))
         self.bias = nn.Parameter(torch.zeros(cout))
         self.dtype = dtype
+        self.stride = stride
         if zero:
             nn.init.zeros_(self.weight)
         else:
@@ -81,8 +96,25 @@ class Conv(nn.Module):
 
     def forward(self, x):
         w = self.weight
-        return F.conv2d(x.to(self.dtype), w.to(self.dtype),
-                        self.bias.to(self.dtype), padding=w.shape[-1] // 2)
+        x = x.to(self.dtype)
+        k = w.shape[-1]
+        if self.stride == 1:
+            padding = k // 2
+        else:
+            padding = 0
+            top, bottom = same_padding(x.shape[-2], k, self.stride)
+            left, right = same_padding(x.shape[-1], k, self.stride)
+            x = F.pad(x, (left, right, top, bottom))
+        return F.conv2d(x, w.to(self.dtype), self.bias.to(self.dtype),
+                        stride=self.stride, padding=padding)
+
+
+class UpConv(Conv):
+    """Nearest x 2 upsampling, then a 3 x 3 'SAME' conv (the up-sampling of
+    `biggan_updown=False`)."""
+
+    def forward(self, x):
+        return super().forward(F.interpolate(x, scale_factor=2, mode="nearest"))
 
 
 class Dense(nn.Module):
@@ -129,7 +161,8 @@ class ResBlock(nn.Module):
     BigGAN-style in-block resampling."""
 
     def __init__(self, cin: int, cout: int, time_dim: int, dtype: torch.dtype,
-                 dropout: float = 0.0, up: bool = False, down: bool = False):
+                 dropout: float = 0.0, up: bool = False, down: bool = False,
+                 use_conv_skip: bool = False):
         super().__init__()
         self.up, self.down, self.dropout = up, down, dropout
         self.norm_in = NormSiLU(cin)
@@ -137,7 +170,8 @@ class ResBlock(nn.Module):
         self.emb_proj = Dense(time_dim, cout, dtype)
         self.norm_out = NormSiLU(cout)
         self.conv_out = Conv(cout, cout, 3, dtype, zero=True)
-        self.skip = Conv(cin, cout, 1, dtype) if cin != cout else None
+        self.skip = (Conv(cin, cout, 3 if use_conv_skip else 1, dtype)
+                     if cin != cout else None)
 
     def forward(self, x, emb):
         h = self.norm_in(x)
@@ -209,7 +243,8 @@ class UNet(nn.Module):
                  channel_mults: Tuple[float, ...] = (), num_res_blocks: int = 2,
                  dropout: float = 0.0, attention_resolutions: str = "32,16,8",
                  n_heads: int = 1, n_head_channels: int = -1,
-                 space_to_depth: int = 1, dtype: torch.dtype = torch.float32):
+                 space_to_depth: int = 1, dtype: torch.dtype = torch.float32,
+                 biggan_updown: bool = True):
         super().__init__()
         self.in_channels = in_channels
         self.s2d = space_to_depth
@@ -259,7 +294,9 @@ class UNet(nn.Module):
                 skips.append(ch)
                 plan.append("push")
             if i != len(mults) - 1:
-                add(f"down_sample_{i}", res(ch, ch, down=True))
+                add(f"down_sample_{i}",
+                    res(ch, ch, down=True) if biggan_updown
+                    else Conv(ch, ch, 3, dtype, stride=2))
                 ds *= 2
                 skips.append(ch)
                 plan.append("push")
@@ -275,7 +312,9 @@ class UNet(nn.Module):
                 if ds in attention_ds:
                     add(f"up_attn_{i}_{j}", attn(ch))
                 if i and j == num_res_blocks:
-                    add(f"up_sample_{i}", res(ch, ch, up=True))
+                    add(f"up_sample_{i}",
+                        res(ch, ch, up=True) if biggan_updown
+                        else UpConv(ch, ch, 3, dtype))
                     ds //= 2
         assert not skips
         self.out_norm = NormSiLU(ch)

@@ -70,6 +70,28 @@ PyTorch built for CUDA.  Phases, each of which fails the run when it fails:
    lambda 200; exact launches, the CSV), a steady volume group, and
    `data.inspect` in compare mode.
 
+13. the data-parallel and training paths: `sharded_anomalous_metrics` at
+   full width over an NCCL mesh of one rank (the only size one card
+   allows) on one volume, with exact launches; the context-encoder curve
+   of `roc_data` beside the training phase's checkpoint; the DDP train step
+   (NCCL, world size 1) against the plain one at 32^2 (fp32, TF32 off),
+   two gloo ranks on the card (spawned processes) against one, and
+   args256syn128 at batch 8 with the plain step, the DDP step and DDP
+   copying gradients out of its buckets timed in turns, one step of each
+   profiled
+   (the ops and kernels where DDP spends more than the plain step);
+   each remat policy against none at 32^2, then at full width with its ms
+   per step, peak memory and launches; `make_multi_step` on args_dptest
+   (2 substeps) under sync-debug "error";
+14. the context encoder at 256^2 (a short training, one volume scored, no
+   K1/K2 launch), every figure generator at 32^2 under the JAX package's
+   file names, and the host C++ noise oracle built by g++ here, holding the
+   table-path field computed on the card.
+
+From phase 13 on, every (shape, dtype) that K2 and K2b launch at is
+recorded, and after each phase K2 and K2b are held against their plain
+versions at each shape not held before (the 2 gloo ranks report theirs).
+
 Phase 3 also holds K1's parameters-from-device entry (randParam) against
 its plain version at all 23 RAND_PARAM_TABLE triples, the simplex volume
 through K1 against the plain volume, and the table and 2-D noise paths
@@ -872,6 +894,28 @@ def check_k1_shapes():
     return worst, table
 
 
+def k2_case(x, gamma, beta):
+    """K2 on one set of inputs against `_plain`: the output within K2_TOL
+    (fp32) or a bf16 ulp, mean and rstd within K2_STATS_TOL.  Returns the
+    output's max|d|."""
+    from anoddpm_torch.ops import group_norm_silu as gn
+    got, mean, rstd = gn.group_norm_silu_with_stats(x, gamma, beta)
+    want, wmean, wrstd = gn._plain(x, gamma, beta, 1e-5)
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    stats_err = max((mean - wmean).abs().max().item(),
+                    (rstd - wrstd).abs().max().item())
+    if x.dtype == torch.float32:
+        ok = (diff <= K2_TOL + K2_TOL * want.abs()).all().item()
+    else:
+        ok = (diff <= torch.clamp(bf16_ulp(want), min=K2_TOL)).all().item()
+    err = diff.max().item()
+    require(ok and stats_err <= K2_STATS_TOL,
+            f"K2 {tuple(x.shape)} {x.dtype}: max|d| {err:.3e}, mean/rstd "
+            f"{stats_err:.3e}")
+    return err
+
+
 def check_k2_batches(sites):
     """K2 against its plain version at every K2 site of one UNet forward
     (each at its own dtype, bf16 at all but the output norm) at the batches
@@ -888,25 +932,11 @@ def check_k2_batches(sites):
                  + 0.4).to(dtype)
             gamma = 1 + 0.1 * torch.randn(c, generator=gen, device=DEVICE)
             beta = 0.1 * torch.randn(c, generator=gen, device=DEVICE)
-            got, mean, rstd = gn.group_norm_silu_with_stats(x, gamma, beta)
-            want, wmean, wrstd = gn._plain(x, gamma, beta, 1e-5)
-            got, want = got.float(), want.float()
-            diff = (got - want).abs()
-            stats_err = max((mean - wmean).abs().max().item(),
-                            (rstd - wrstd).abs().max().item())
-            if dtype == torch.float32:
-                ok = (diff <= K2_TOL + K2_TOL * want.abs()).all().item()
-            else:
-                ok = (diff <= torch.clamp(bf16_ulp(want), min=K2_TOL)).all().item()
-            err = diff.max().item()
-            worst = max(worst, err)
-            require(ok and stats_err <= K2_STATS_TOL,
-                    f"K2 N={n} {shape[1:]} {dtype}: max|d| {err:.3e}, "
-                    f"mean/rstd {stats_err:.3e}")
+            worst = max(worst, k2_case(x, gamma, beta))
             dev = graph_ms(lambda: gn.group_norm_silu(x, gamma, beta), reps=10)
             bound = 2 * x.numel() * x.element_size() / HBM_BYTES_PER_S * 1e3
             timing[(shape, dtype)] = (dev, bound)
-            del x, got, want, diff
+            del x
         dev = sum(timing[s][0] for s in sites)
         bound = sum(timing[s][1] for s in sites)
         table[n] = (dev, bound)
@@ -1036,23 +1066,31 @@ def graph_path(model, args, k2_per_forward):
 def roc_path(root, k2_per_forward):
     """`roc_data` for args256syn128 on one volume at lambda 200, reading the
     final checkpoint that the training phase wrote under `root`."""
+    import shutil
     from anoddpm_torch import detect
+    os.makedirs(os.path.join(root, "configs"), exist_ok=True)
+    shutil.copy(os.path.join(ROOT, "configs", f"args{CONFIG}.json"),
+                os.path.join(root, "configs"))
     reset_launches()
     t0 = time.time()
     curves = detect.roc_data([CONFIG], root_dir=root, t_distance=LAMBDA,
-                             max_volumes=1, device=DEVICE)
+                             max_volumes=1, ce_token=CONFIG,
+                             ce_train_steps=CE_STEPS, device=DEVICE)
     torch.cuda.synchronize()
     counts = torch_launches()
     with open(os.path.join(root, "metrics", "roc-comparison.csv")) as f:
         header = f.readline().strip()
-    fpr, tpr = curves[f"args{CONFIG}"]
     want = (1 + LAMBDA, k2_per_forward * LAMBDA, 0)
-    log(f"roc: {time.time() - t0:.2f} s, header {header!r}, {len(fpr)} curve "
-        f"points; launches K1 {counts[0]}, K2 {counts[1]}, K2b {counts[2]} "
-        f"(expected {want})")
+    log(f"roc with the context-encoder curve ({CE_STEPS} CE steps): "
+        f"{time.time() - t0:.2f} s, header {header!r}; launches K1 "
+        f"{counts[0]}, K2 {counts[1]}, K2b {counts[2]} (expected {want}: the "
+        f"context encoder launches none)")
     require(tuple(counts) == want, f"roc: launches {counts} != {want}")
-    require(header == f"args{CONFIG}_fpr,args{CONFIG}_tpr", f"roc header {header}")
-    require(fpr[-1] == 1.0 and tpr[-1] == 1.0, "roc: the curve does not end at (1, 1)")
+    require(header == f"args{CONFIG}_fpr,args{CONFIG}_tpr,"
+            "context-encoder_fpr,context-encoder_tpr", f"roc header {header}")
+    for label, (fpr, tpr) in curves.items():
+        require(fpr[-1] == 1.0 and tpr[-1] == 1.0,
+                f"roc: the {label} curve does not end at (1, 1)")
     return list(counts)
 
 
@@ -1666,6 +1704,542 @@ def train_path(args, k2_per_forward, card, root):
     return [a + b for a, b in zip(leg1, leg2)]
 
 
+# The data-parallel, remat, substep, sharded-detection, context-encoder,
+# figure and native-oracle phases.
+REMAT_POLICIES = (None, "dots", "nothing")
+REMAT_STEPS = 5             # timed full-width steps per remat policy
+DP_TOL = 1e-5               # W ranks vs one, relative to the largest value
+DP_RANKS_TIMEOUT_S = 300    # the gloo ranks' group timeout and join deadline
+CE_STEPS = 50               # context-encoder training steps at 256^2
+FIG_T = 40                  # the figure phase's schedule length
+NATIVE_FIELDS = 4           # table-path fields of 256^2, 6 octaves
+
+
+# Every (shape, dtype) K2 and K2b launched at since `record_launch_shapes`,
+# and those `check_launched_shapes` has held against the plain versions.
+LAUNCHED = {"K2": set(), "K2b": set()}
+CHECKED = {"K2": set(), "K2b": set()}
+
+
+def record_launch_shapes():
+    """From here on keep the (shape, dtype) of every K2 and K2b launch in
+    LAUNCHED: each launch asks its cached argument builder for its shape."""
+    from anoddpm_torch.ops import group_norm_silu as gn
+    for name, key in (("_launch_args", "K2"), ("_backward_launch_args", "K2b")):
+        def recording(shape, dtype, device, real=getattr(gn, name), key=key):
+            LAUNCHED[key].add((tuple(shape), dtype))
+            return real(shape, dtype, device)
+        setattr(gn, name, recording)
+
+
+def check_launched_shapes(what):
+    """K2 and K2b against their plain versions, under `k2_case`'s and
+    `k2b_case`'s rules, at every (shape, dtype) they launched at and that
+    no earlier call held.  Returns the worst K2 and K2b max|d|."""
+    from anoddpm_torch.ops import group_norm_silu as gn
+    gen = torch.Generator(device=DEVICE).manual_seed(18)
+    new = {k: sorted(LAUNCHED[k] - CHECKED[k], key=str) for k in LAUNCHED}
+    worst = {"K2": 0.0, "K2b": 0.0}
+    for key, cases in new.items():
+        for shape, dtype in cases:
+            c = shape[1]
+            x = (torch.randn(shape, generator=gen, device=DEVICE) * 1.7
+                 + 0.4).to(dtype)
+            gamma = 1 + 0.1 * torch.randn(c, generator=gen, device=DEVICE)
+            beta = 0.1 * torch.randn(c, generator=gen, device=DEVICE)
+            if key == "K2":
+                err = k2_case(x, gamma, beta)
+            else:
+                go = torch.randn(shape, generator=gen, device=DEVICE).to(dtype)
+                _, mean, rstd = gn.group_norm_silu_with_stats(x, gamma, beta)
+                err, _ = k2b_case(x, go, gamma, beta, mean, rstd)
+            worst[key] = max(worst[key], err)
+            CHECKED[key].add((shape, dtype))
+    summary = "; ".join(
+        f"{k} at {len(v)} new (shape, dtype), batches "
+        f"{sorted({s[0] for s, _ in v})}, sizes {sorted({s[2] for s, _ in v})}"
+        f"^2, worst max|d| {worst[k]:.3e}" for k, v in new.items())
+    log(f"kernels at the shapes {what} launched, held against plain: {summary}")
+    return worst["K2"], worst["K2b"]
+
+
+def free_port():
+    """A TCP port on localhost that nothing listens on now."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def small_dp_steps(mesh=None, remat=None, steps=2, device=None):
+    """Two fp32 train steps (hybrid loss, prop-t weights, simplex noise) of
+    the 32^2 UNet from seeded weights on global batches of 4, TF32 off;
+    under a mesh each rank takes its rows and draws for the global batch.
+    Returns the losses, each step's clipped gradients, the parameters, the
+    EMA and AdamW's moments, on the CPU."""
+    import numpy as np
+    from anoddpm_torch import schedule, training
+    from anoddpm_torch.ops.noise import make_noise_sampler
+    device = torch.device(device or (mesh.device if mesh else DEVICE))
+    model = small_unet().to(device)
+    state = training.init_train_state(
+        model, training.make_optimizer(model.parameters(), 1e-4))
+    sched = schedule.make_schedule(
+        schedule.get_beta_schedule(20, "cosine")).to(device)
+    step = training.make_train_step(sched, make_noise_sampler("simplex"),
+                                    "hybrid", loss_weight="prop-t",
+                                    remat=remat, mesh=mesh)
+    gen = torch.Generator(device=device).manual_seed(3)
+    rng = np.random.default_rng(4)
+    out = {"losses": [], "grads": []}
+    with tf32_off():
+        for _ in range(steps):
+            x = torch.from_numpy(rng.normal(size=(4, 1, 32, 32)).astype(
+                np.float32)).to(device)
+            m = step(state, x if mesh is None else mesh.shard_batch(x), gen)
+            out["losses"].append(float(m["loss"]))
+            out["grads"].append([p.grad.detach().cpu().clone()
+                                 for p in model.parameters()])
+    out["params"] = [p.detach().cpu() for p in model.parameters()]
+    out["ema"] = [p.detach().cpu() for p in state.ema.parameters()]
+    opt = training.optimizer_state(state)
+    out["moments"] = [opt[n][k].cpu() for n, _ in model.named_parameters()
+                      for k in ("exp_avg", "exp_avg_sq")]
+    return out
+
+
+def compare_dp_steps(got, want, what):
+    """`small_dp_steps` results within DP_TOL: losses relative; gradients,
+    EMA and moments against the largest magnitude of their kind; parameters
+    against their largest, where every step's gradient exceeds 1e-3 of the
+    largest (elsewhere Adam steps by +-lr with a sign set by rounding, and
+    is held to 2 lr a step).  Returns the worst relative difference."""
+    worst = max(abs(a - b) / abs(b) for a, b in zip(got["losses"], want["losses"]))
+    gmax = max(g.abs().max().item() for gs in want["grads"] for g in gs)
+    for gs_g, gs_w in zip(got["grads"], want["grads"]):
+        worst = max(worst, max((a - b).abs().max().item()
+                               for a, b in zip(gs_g, gs_w)) / gmax)
+    for kind in ("ema", "moments"):
+        scale = max(w.abs().max().item() for w in want[kind])
+        worst = max(worst, max((a - b).abs().max().item()
+                               for a, b in zip(got[kind], want[kind])) / scale)
+    steps = len(want["grads"])
+    for i, (a, b) in enumerate(zip(got["params"], want["params"])):
+        keep = torch.stack([gs[i].abs() > 1e-3 * gmax
+                            for gs in want["grads"]]).all(0)
+        d = (a - b).abs()
+        require(d.max().item() <= 2 * 1e-4 * steps,
+                f"{what}: a parameter moved {d.max().item():.3e} apart")
+        if keep.any():
+            worst = max(worst, d[keep].max().item() / b.abs().max().item())
+    log(f"{what}: worst relative difference {worst:.3e} (rule {DP_TOL})")
+    require(worst <= DP_TOL, f"{what}: {worst:.3e} > {DP_TOL}")
+    return worst
+
+
+def _gloo_rank(rank, port, out_path, device):
+    """One of two gloo ranks on `device` (a spawned process)."""
+    import datetime
+    sys.path.insert(0, ROOT)
+    from anoddpm_torch.parallel.mesh import close_mesh, init_mesh
+    mesh = init_mesh(device, backend="gloo",
+                     init_method=f"tcp://localhost:{port}", rank=rank,
+                     world_size=2,
+                     timeout=datetime.timedelta(seconds=DP_RANKS_TIMEOUT_S))
+    record_launch_shapes()
+    try:
+        out = small_dp_steps(mesh)
+        out["launched"] = LAUNCHED
+        if mesh.is_main:
+            torch.save(out, out_path)
+    finally:
+        close_mesh(mesh)
+
+
+def gloo_two_ranks(want):
+    """`small_dp_steps` on two gloo ranks sharing the card, each its own
+    process, against one process on the card."""
+    import torch.multiprocessing as mp
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "rank0.pt")
+        t0 = time.time()
+        device = "cuda:0" if DEVICE == "cuda" else DEVICE
+        ctx = mp.start_processes(_gloo_rank, args=(free_port(), path, device),
+                                 nprocs=2, join=False, start_method="spawn")
+        deadline = t0 + DP_RANKS_TIMEOUT_S
+        try:
+            while not ctx.join(timeout=max(deadline - time.time(), 0.1)):
+                require(time.time() < deadline,
+                        f"2 gloo ranks did not finish in {DP_RANKS_TIMEOUT_S} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.terminate()
+        got = torch.load(path, weights_only=False)
+    for key, shapes in got["launched"].items():
+        LAUNCHED[key] |= shapes
+    log(f"2 gloo ranks on the card (32^2, global batch 4, 2 steps): "
+        f"{time.time() - t0:.1f} s with the processes' start")
+    compare_dp_steps(got, want, "2 gloo ranks vs 1 process")
+
+
+def ddp_variant(step_of, state, batch, gen, mesh, **options):
+    """A DDP train step whose DistributedDataParallel takes `options`
+    (built at its first step, which is taken here)."""
+    from anoddpm_torch import training
+    real = training.data_parallel
+    training.data_parallel = lambda module, mesh_: \
+        torch.nn.parallel.DistributedDataParallel(
+            module, device_ids=([mesh_.device.index] if mesh_.device.type == "cuda"
+                                else None), **options)
+    try:
+        step = step_of(mesh=mesh)
+        step(state, batch, gen)
+    finally:
+        training.data_parallel = real
+    return step
+
+
+def profile_step(step, state, batch, gen):
+    """One step under torch.profiler: its wall ms, self CPU ms by op name,
+    device ms of kernels and copies by name (not the device spans of
+    record_function ranges), and the NCCL kernels' names."""
+    torch.cuda.synchronize()
+    t0 = time.time()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        step(state, batch, gen)
+        torch.cuda.synchronize()
+    wall = (time.time() - t0) * 1e3
+    by_name = {a.key: a.self_cpu_time_total / 1e3 for a in prof.key_averages()}
+    device = {}
+    for e in prof.events():
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and not e.is_user_annotation):
+            device[e.name] = device.get(e.name, 0.0) + e.device_time_total / 1e3
+    nccl = sorted(k for k in device if "nccl" in k.lower())
+    return wall, by_name, device, nccl
+
+
+def ddp_path(args, k2_per_forward, mesh, card):
+    """Data parallel on the card: the NCCL mesh of one rank (the only size
+    one card allows) at 32^2 against the plain step; two gloo ranks on the
+    card against one; then args256syn128 at batch 8 and full width: the
+    plain step, the DDP step and DDP copying the gradients out of its
+    buckets (as before the port made them views) timed in turns, with exact kernel launches per step, and one
+    profiled step of each split into device time and host time by op (the
+    ops where DDP spends more host time than the plain step)."""
+    from anoddpm_torch.ops.group_norm_silu import BACKWARD_LAUNCHES
+    want = small_dp_steps()
+    compare_dp_steps(small_dp_steps(mesh), want, "DDP over NCCL (W = 1) vs plain")
+    gloo_two_ranks(want)
+    state, batch, step_of = full_width_state(args)
+    gen = torch.Generator(device=DEVICE).manual_seed(9)
+    steps = {"plain": step_of(), "ddp": step_of(mesh=mesh)}
+    steps["ddp_copy"] = ddp_variant(step_of, state, batch, gen, mesh,
+                                    gradient_as_bucket_view=False)
+    for step in steps.values():
+        for _ in range(3):
+            step(state, batch, gen)
+    times, counts = {k: [] for k in steps}, None
+    want_counts = [STEADY_STEPS, STEADY_STEPS * k2_per_forward,
+                   STEADY_STEPS * k2_per_forward * BACKWARD_LAUNCHES]
+    for name in ("plain", "ddp", "ddp_copy", "ddp_copy", "ddp", "plain"):
+        torch.cuda.synchronize()
+        before = torch_launches()
+        t0 = time.time()
+        for _ in range(STEADY_STEPS):
+            metrics = steps[name](state, batch, gen)
+        torch.cuda.synchronize()
+        times[name].append((time.time() - t0) / STEADY_STEPS * 1e3)
+        got = [a - b for a, b in zip(torch_launches(), before)]
+        if name == "ddp":
+            counts = got
+        require(math.isfinite(float(metrics["loss"])), f"{name} step: loss")
+        require(got == want_counts, f"{name} window launches {got} != {want_counts}")
+    profiles = {k: profile_step(v, state, batch, gen) for k, v in steps.items()}
+    log(f"DDP step at args{CONFIG}, batch {TRAIN_BATCH}, NCCL W = 1 ({card}; "
+        f"{sum(1 for _ in state.model.buffers())} buffers, so broadcast_buffers "
+        f"has nothing to send): ms per step over {STEADY_STEPS} steps in turns "
+        + ", ".join(f"{k} {' / '.join(f'{t:.3f}' for t in v)}"
+                    for k, v in times.items())
+        + f"; launches per DDP step K1 {counts[0] // STEADY_STEPS}, K2 "
+        f"{counts[1] // STEADY_STEPS}, K2b {counts[2] // STEADY_STEPS}, plus "
+        f"NCCL kernels {profiles['ddp'][3]}")
+    plain = profiles["plain"]
+
+    def most_extra(got, base, n):
+        extra = sorted(((v - base.get(k, 0.0), k) for k, v in got.items()),
+                       reverse=True)[:n]
+        return ", ".join(f"{k[:60]} {d:+.3f}" for d, k in extra)
+
+    for name in ("ddp", "ddp_copy"):
+        wall, by_name, device, _ = profiles[name]
+        log(f"profiled {name} step: wall {wall:.3f} ms, kernels and copies "
+            f"{sum(device.values()):.3f} ms on the device, self CPU "
+            f"{sum(by_name.values()):.3f} ms; plain step wall {plain[0]:.3f} ms, "
+            f"device {sum(plain[2].values()):.3f} ms, self CPU "
+            f"{sum(plain[1].values()):.3f} ms; the most extra self CPU ms: "
+            f"{most_extra(by_name, plain[1], 10)}; the most extra device ms: "
+            f"{most_extra(device, plain[2], 8)}")
+    del state, steps
+    torch.cuda.empty_cache()
+    return counts
+
+
+def full_width_state(args):
+    """A fresh args256syn128 train state on the card (seeded init), a batch
+    of TRAIN_BATCH synthetic slices, and `step_of(**kw)` making its train
+    step."""
+    import numpy as np
+    from anoddpm_torch import train, training
+    from anoddpm_torch.config import defaultdict_from_json
+    from anoddpm_torch.data.datasets import dataset_from_args
+    from anoddpm_torch.data.pipeline import to_nchw
+    from anoddpm_torch.ops.noise import sampler_from_args
+    from anoddpm_torch.schedule import schedule_from_args
+    targs = defaultdict_from_json(dict(args))
+    state = train.new_train_state(targs, torch.device(DEVICE))
+    ds = dataset_from_args(ROOT, targs)
+    batch = to_nchw(np.stack([ds[i]["image"] for i in range(TRAIN_BATCH)])).to(DEVICE)
+    sched = schedule_from_args(targs).to(DEVICE)
+
+    def step_of(**kw):
+        return training.make_train_step(
+            sched, sampler_from_args(targs),
+            max_t=min(int(targs["sample_distance"]), int(targs["T"])), **kw)
+
+    return state, batch, step_of
+
+
+def remat_path(args, k2_per_forward, card):
+    """Each remat policy at 32^2 (fp32, TF32 off) against no remat: the
+    losses and gradients of two steps; then at full width (args256syn128,
+    batch 8): ms per step, peak memory and K1/K2/K2b launches per step."""
+    from anoddpm_torch.ops.group_norm_silu import BACKWARD_LAUNCHES
+    want = small_dp_steps()
+    for policy in REMAT_POLICIES[1:]:
+        compare_dp_steps(small_dp_steps(remat=policy), want,
+                         f"remat {policy} vs none (32^2)")
+    state, batch, step_of = full_width_state(args)
+    gen = torch.Generator(device=DEVICE).manual_seed(9)
+    total = [0, 0, 0]
+    for policy in REMAT_POLICIES:
+        step = step_of(remat=policy)
+        for _ in range(2):
+            step(state, batch, gen)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch_launches()
+        t0 = time.time()
+        for _ in range(REMAT_STEPS):
+            metrics = step(state, batch, gen)
+        torch.cuda.synchronize()
+        ms = (time.time() - t0) / REMAT_STEPS * 1e3
+        counts = [a - b for a, b in zip(torch_launches(), before)]
+        total = [a + b for a, b in zip(total, counts)]
+        per = [c // REMAT_STEPS for c in counts]
+        want_per = [1, k2_per_forward * (1 if policy is None else 2),
+                    k2_per_forward * BACKWARD_LAUNCHES]
+        log(f"remat {policy} at args{CONFIG}, batch {TRAIN_BATCH} ({card}): "
+            f"{ms:.3f} ms per step over {REMAT_STEPS}; peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches per "
+            f"step K1 {per[0]}, K2 {per[1]}, K2b {per[2]} (expected {want_per}); "
+            f"loss {float(metrics['loss']):.5f}")
+        require(counts == [REMAT_STEPS * w for w in want_per],
+                f"remat {policy}: launches {counts}")
+        require(math.isfinite(float(metrics["loss"])), f"remat {policy}: loss")
+    del state
+    torch.cuda.empty_cache()
+    return total
+
+
+def substeps_path(card):
+    """args_dptest (32^2, hybrid loss, prop-t, randParam, dropout 0.1, fp32,
+    train_substeps 2) through `make_multi_step`: a window of dispatches
+    under sync-debug "error" (no host sync anywhere in them), exact
+    launches."""
+    import numpy as np
+    from anoddpm_torch import train, training
+    from anoddpm_torch.config import load_args
+    from anoddpm_torch.data.datasets import dataset_from_args
+    from anoddpm_torch.data.pipeline import to_nchw
+    from anoddpm_torch.models.unet import NormSiLU
+    from anoddpm_torch.ops.group_norm_silu import BACKWARD_LAUNCHES
+    from anoddpm_torch.ops.noise import sampler_from_args
+    from anoddpm_torch.schedule import schedule_from_args
+    dargs = load_args("args_dptest", config_dir=os.path.join(ROOT, "configs"))
+    s, b = int(dargs["train_substeps"]), int(dargs["Batch_Size"])
+    state = train.new_train_state(dargs, torch.device(DEVICE))
+    sites = sum(isinstance(m, NormSiLU) for m in state.model.modules())
+    ds = dataset_from_args(ROOT, dargs)
+    batches = to_nchw(np.stack([ds[i]["image"] for i in range(s * b)]).reshape(
+        (s, b) + ds[0]["image"].shape)).to(DEVICE)
+    step = training.make_multi_step(training.make_train_step(
+        schedule_from_args(dargs).to(DEVICE), sampler_from_args(dargs),
+        str(dargs["loss-type"]), loss_weight=str(dargs["loss_weight"]),
+        dropout=True), s)
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    for _ in range(3):
+        step(state, batches, gen)
+    torch.cuda.synchronize()
+    before = torch_launches()
+    t0 = time.time()
+    with sync_debug_error():
+        for _ in range(STEADY_STEPS):
+            metrics = step(state, batches, gen)
+    torch.cuda.synchronize()
+    ms = (time.time() - t0) / STEADY_STEPS * 1e3
+    counts = [a - b for a, b in zip(torch_launches(), before)]
+    want = [STEADY_STEPS * s, STEADY_STEPS * s * sites,
+            STEADY_STEPS * s * sites * BACKWARD_LAUNCHES]
+    log(f"substeps: args_dptest, {s} steps of batch {b} per dispatch ({card}): "
+        f"{ms:.3f} ms per dispatch = {s * b / ms * 1e3:.1f} images/s over "
+        f"{STEADY_STEPS} dispatches, no host sync; launches {counts} "
+        f"(expected {want}); mean loss {float(metrics['loss']):.5f}")
+    require(counts == want, f"substeps: launches {counts} != {want}")
+    require(math.isfinite(float(metrics["loss"])), "substeps: loss")
+    return counts
+
+
+def sharded_path(model, args, k2_per_forward, mesh):
+    """`sharded_anomalous_metrics` at full width over the NCCL mesh of one
+    rank on one volume: exact launches (one chunk of 4 slices), finite
+    metrics in the CSV, slices/s."""
+    from anoddpm_torch import detect
+    from anoddpm_torch.schedule import schedule_from_args
+    sched = schedule_from_args(args).to(DEVICE)
+    with tempfile.TemporaryDirectory() as root:
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        summary = detect.sharded_anomalous_metrics(args, model, sched, mesh,
+                                                   root_dir=root, max_volumes=1)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        counts = list(torch_launches())
+        with open(os.path.join(root, "metrics", f"args{CONFIG}.csv")) as f:
+            csv = f.read().strip()
+    want = [LAMBDA + 1, k2_per_forward * LAMBDA, 0]
+    log(f"sharded detection (NCCL W = 1, 1 volume of {BATCH} slices, lambda "
+        f"{LAMBDA}): {wall:.2f} s = {BATCH / wall:.3f} slices/s; launches "
+        f"{counts} (expected {want}); csv {csv!r}")
+    require(counts == want, f"sharded detection: launches {counts} != {want}")
+    require(all(math.isfinite(summary[k]) for k in detect.METRIC_NAMES),
+            f"sharded detection: {summary}")
+    return counts
+
+
+def ce_path(args):
+    """The context-encoder baseline at 256^2: CE_STEPS training steps on
+    the synthetic healthy set, one anomalous volume scored (the CE CSV);
+    no K1/K2 launches."""
+    from anoddpm_torch import baselines
+    with tempfile.TemporaryDirectory() as root:
+        reset_launches()
+        t0 = time.time()
+        model = baselines.train_context_encoder(args, root_dir=root,
+                                                steps=CE_STEPS, device=DEVICE)
+        torch.cuda.synchronize()
+        train_s = time.time() - t0
+        t0 = time.time()
+        summary, (fpr, tpr, _) = baselines.ce_anomalous_metrics(
+            model, args, root_dir=root, max_volumes=1)
+        score_s = time.time() - t0
+        with open(os.path.join(root, "metrics", f"args{CONFIG}-ce.csv")) as f:
+            header = f.readline().strip()
+        counts = list(torch_launches())
+    log(f"context encoder at 256^2: {CE_STEPS} steps of batch 16 in "
+        f"{train_s:.2f} s, 1 volume scored in {score_s:.2f} s (16 inpaintings "
+        f"per slice); AUC {summary['auc']:.4f}; csv header {header!r}; "
+        f"launches {counts}")
+    require(header == "dice,iou,precision,recall,fpr,auc", f"CE csv {header}")
+    require(counts == [0, 0, 0], f"context encoder launched {counts}")
+    require(fpr[-1] == 1.0 and tpr[-1] == 1.0, "CE ROC does not end at (1, 1)")
+    return counts
+
+
+def figures_path(writers):
+    """Every figure generator, the test-set filmstrips and the CE sheets at
+    32^2 (T = FIG_T) on the card from a checkpoint of the small UNet: the
+    JAX package's file names under final-outputs/."""
+    from anoddpm_torch import baselines, checkpoint, figures
+    from anoddpm_torch.config import defaultdict_from_json
+    args = defaultdict_from_json({
+        **small_suite_args(), "arg_num": "figs", "T": FIG_T,
+        "sample_distance": 30, "anomalous_volumes": 2})
+    model = small_unet()
+    with tempfile.TemporaryDirectory() as root:
+        for token in ("figs", "figg"):
+            checkpoint.save_checkpoint(root, {**args, "arg_num": token}, 0,
+                                       model.state_dict(), model.state_dict(),
+                                       {}, final=True)
+        reset_launches()
+        t0 = time.time()
+        fargs, em, sched = figures._load_eval_model(root, "figs", device=DEVICE)
+        small = {"ano": dict(n_attempts=1), "masked_comparison": dict(n_volumes=2),
+                 "videos": dict(n_volumes=1)}
+        for name, fn in figures.GENERATORS.items():
+            fn(fargs, em, sched, root_dir=root, **small.get(name, {}))
+        figures.test_set_outputs("figs", "figg", root_dir=root, n_attempts=1,
+                                 device=DEVICE)
+        ce = baselines.train_context_encoder(fargs, root_dir=root, steps=5,
+                                             device=DEVICE)
+        figures.ce_outputs(fargs, ce, root_dir=root, n_attempts=1)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        counts = list(torch_launches())
+        got = {p for p in files_under(root) if p.startswith("final-outputs")}
+    want = {f"final-outputs/ARGS=figs-{n}.png" for n in (
+        "sequence", "masked-comparison", "gauss-vs-simplex",
+        "varying-frequency", "gauss-varyingT")}
+    want |= {f"final-outputs/ARGS=figs/{n}" for n in (
+        "attempt=1-0.5-predictions.png", "attempt=1-0.5-sequence.png",
+        "test_set_mixed_attempt=1-sequence.png", "ce-attempt=1-predictions.png")}
+    if writers["videos"]:
+        want.add("final-outputs/ARGS=figs-video-0.video")
+    log(f"figures at 32^2 (T {FIG_T}): {wall:.1f} s, {len(got)} files, the JAX "
+        f"package's names; launches K1 {counts[0]}, K2 {counts[1]}, K2b "
+        f"{counts[2]}")
+    require(got == want, f"figures: got {sorted(got ^ want)} differently")
+    require(counts[0] > 0 and counts[1] > 0 and counts[2] == 0,
+            f"figures: launches {counts}")
+    return counts
+
+
+def native_path():
+    """The host C++ oracle built by g++ here, holding the table-path field
+    on the card: NATIVE_FIELDS fields of 256^2, 6 octaves, against the
+    oracle's float64 fields from the same tables, by the rule the JAX
+    package holds its own table path to (tests/test_native.py): median
+    |d| < 1e-6 and >= 99% of pixels within 1e-4."""
+    import numpy as np
+    from anoddpm_torch.ops import native
+    from anoddpm_torch.ops import simplex as sx
+    t0 = time.time()
+    path = native.build()
+    build_s = time.time() - t0
+    gen = torch.Generator(device=DEVICE).manual_seed(17)
+    perms, gids = sx.perm_tables(NATIVE_FIELDS, gen)
+    t = torch.tensor([0.0, 57.0, 123.0, 199.0], device=DEVICE)[:NATIVE_FIELDS]
+    got = sx.batched_fractal3_fixed_t_table(perms, gids, t, (256, 256), 6,
+                                            0.8, 64.0).cpu().numpy()
+    perms, gids, t = perms.cpu().numpy(), gids.cpu().numpy(), t.cpu().numpy()
+    t0 = time.time()
+    err = np.stack([np.abs(got[i] - native.fractal_fixed_t(
+        (256, 256), float(t[i]), 6, 0.8, 64.0, perms[i], gids[i]))
+        for i in range(NATIVE_FIELDS)])
+    oracle_s = time.time() - t0
+    med, within = float(np.median(err)), float((err < 1e-4).mean())
+    log(f"native oracle: built {os.path.basename(path)} in {build_s:.2f} s; "
+        f"{NATIVE_FIELDS} table-path fields on the card vs float64 oracle "
+        f"({oracle_s:.2f} s on the host): median |d| {med:.2e}, "
+        f"{within * 100:.3f}% within 1e-4, {float((err < 1e-5).mean()) * 100:.2f}% "
+        f"within 1e-5, max {err.max():.2e}")
+    require(med < 1e-6 and within >= 0.99, "native oracle: table path differs")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1705,28 +2279,69 @@ def main():
     phase("DDIM")
     counts["graph"] = graph_path(model, args, len(sites))
     phase("graph")
-    del model
-    torch.cuda.empty_cache()
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
-    with tempfile.TemporaryDirectory() as train_root:
-        counts["train"] = train_path(args, len(sites), card, train_root)
-        phase("training")
-        counts["roc"] = roc_path(train_root, len(sites))
-        phase("ROC")
+    from anoddpm_torch.parallel.mesh import close_mesh, init_mesh
+    mesh = init_mesh(DEVICE, init_method=f"tcp://localhost:{free_port()}",
+                     rank=0, world_size=1)
+    # from here on every shape K2 and K2b launch at is held against the
+    # plain versions after the path that launched it
+    record_launch_shapes()
+    shape_worst = [0.0, 0.0]
+
+    def shapes_of(what):
+        got = check_launched_shapes(what)
+        shape_worst[:] = [max(a, b) for a, b in zip(shape_worst, got)]
+
+    try:
+        counts["sharded"] = sharded_path(model, args, len(sites), mesh)
+        shapes_of("sharded detection")
+        phase("sharded detection")
+        del model
+        torch.cuda.empty_cache()
+        card = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+        with tempfile.TemporaryDirectory() as train_root:
+            counts["train"] = train_path(args, len(sites), card, train_root)
+            shapes_of("training")
+            phase("training")
+            counts["roc"] = roc_path(train_root, len(sites))
+            shapes_of("ROC with CE")
+            phase("ROC with CE")
+        counts["ddp"] = ddp_path(args, len(sites), mesh, card)
+        shapes_of("DDP (NCCL W = 1, 2 gloo ranks, full width)")
+        phase("DDP")
+    finally:
+        close_mesh(mesh)
+    counts["remat"] = remat_path(args, len(sites), card)
+    shapes_of("remat")
+    phase("remat")
+    counts["substeps"] = substeps_path(card)
+    shapes_of("substeps")
+    phase("substeps")
+    counts["ce"] = ce_path(args)
+    phase("context encoder")
     counts["small_suite"] = small_suite(writers)
+    shapes_of("32^2 suite")
     phase("32^2 suite")
+    counts["figures"] = figures_path(writers)
+    shapes_of("figures")
+    phase("figures")
+    native_path()
+    phase("native oracle")
     from anoddpm_torch.models.unet import NormSiLU
     counts["texture"] = texture_passes(
         lambda m: sum(isinstance(x, NormSiLU) for x in m.modules()))
+    shapes_of("texture passes")
     phase("texture passes")
     mri_counts, _, _, k2b_worst = mri_path(card)
+    shapes_of("MRI configuration")
     phase("MRI configuration")
     counts.update(mri_counts)
-    k2b_row["max_abs_err"] = max(k2b_row["max_abs_err"], k2b_worst)
+    k2b_row["max_abs_err"] = max(k2b_row["max_abs_err"], k2b_worst,
+                                 shape_worst[1])
     k1_row["max_abs_err"] = max(k1_row["max_abs_err"], k1_worst)
-    k2_row["max_abs_err"] = max(k2_row["max_abs_err"], k2_worst)
+    k2_row["max_abs_err"] = max(k2_row["max_abs_err"], k2_worst, shape_worst[0])
     rows = (k1_row, k2_row, k2b_row)
     for i, row in enumerate(rows):
         row["launches_by_path"] = {p: c[i] for p, c in counts.items()}

@@ -137,8 +137,8 @@ def test_metric_calculation_writes_csv(tmp_path):
 
 def test_unported_parts_raise(tmp_path, monkeypatch):
     """DDIM, the graph mode, the randParam noise and the real-data families
-    run now; the context-encoder curve and a mesh name their ROADMAP item
-    instead of running something else."""
+    run now; so do the context-encoder curve (`CE=`) and the mesh paths
+    (tests/test_torch_sweeps.py, tests/test_torch_parallel.py)."""
     port = UNet(**CONFIGS["s2d1"]).eval()
     sched = ts.make_schedule(ts.get_beta_schedule(T, "cosine"))
     ddim = defaultdict_from_json({**ARGS, "arg_num": "dd", "sampler": "ddim",
@@ -155,10 +155,10 @@ def test_unported_parts_raise(tmp_path, monkeypatch):
                  device="cpu")
     with open(tmp_path / "metrics" / "ARGS=gr" / "synthetic-anomalous-00000.csv") as f:
         assert len(f.read().splitlines()) == 1 + 3          # lambdas 0, 2, 4
-    with pytest.raises(NotImplementedError, match="ROADMAP.*context-encoder"):
-        tdetect.main(["gr", "roc", "CE=gr"], device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.*data parallel"):
-        tdetect.graph_data(token="gr", mesh=object(), device="cpu")
+    # the context-encoder curve runs (tests/test_torch_sweeps.py), its
+    # token parsed from the roc mode's options
+    assert tdetect._roc_options(["x", "CE=gr", "LESION=diffuse:1.5"]) == (
+        ["x"], "gr", {"lesion_kind": "diffuse", "lesion_severity": 1.5})
     rand = defaultdict_from_json({**ARGS, "arg_num": "rp",
                                   "noise_fn": "simplex_randParam"})
     summary = tdetect.anomalous_metric_calculation(

@@ -26,10 +26,29 @@ def test_import_loads_no_jax():
             "anoddpm_torch.data.nifti, anoddpm_torch.data.transforms, "
             "anoddpm_torch.data.preprocess, anoddpm_torch.data.inspect, "
             "anoddpm_torch.data.synthetic, anoddpm_torch.ops.noise, "
-            "anoddpm_torch.ops.simplex; "
+            "anoddpm_torch.ops.simplex, anoddpm_torch.parallel, "
+            "anoddpm_torch.parallel.mesh, anoddpm_torch.baselines, "
+            "anoddpm_torch.figures, anoddpm_torch.models.context_encoder, "
+            "anoddpm_torch.compat.torch_import, anoddpm_torch.ops.native; "
             "bad = [m for m in ('jax', 'flax', 'optax', 'anoddpm_tpu', "
             "'pandas', 'matplotlib', 'imageio', 'cv2', 'PIL', 'nibabel') "
             "if m in sys.modules]; print(bad); sys.exit(1 if bad else 0)")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("module", [
+    "anoddpm_torch.parallel", "anoddpm_torch.parallel.mesh",
+    "anoddpm_torch.baselines", "anoddpm_torch.figures",
+    "anoddpm_torch.models.context_encoder", "anoddpm_torch.compat.torch_import",
+    "anoddpm_torch.ops.native"])
+def test_new_modules_load_no_jax_or_writers(module):
+    """Each module alone loads no jax, flax, optax, matplotlib or imageio."""
+    code = (f"import sys, {module}; "
+            "bad = [m for m in ('jax', 'flax', 'optax', 'anoddpm_tpu', "
+            "'matplotlib', 'imageio') if m in sys.modules]; print(bad); "
+            "sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr

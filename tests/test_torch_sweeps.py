@@ -13,8 +13,12 @@
   same artifact names and counts as the JAX package's, with a one-layer
   stand-in for the UNet on both sides at T = 100 (below T = 100 the
   sweeps' lambda grids {50, 100, ...} are empty and write nothing).
+- `sharded_anomalous_metrics` on a mesh of one device against the port's
+  without one, its last chunk wrap-padded: reconstructions within 1e-5,
+  the same CSV text.
 - The CLI modes on a 32^2 checkpoint at T = 20 with device="cpu", and the
-  parts that still raise, naming their ROADMAP item."""
+  parts that once raised (the context-encoder curve, randParam
+  validation)."""
 import csv
 import os
 
@@ -117,6 +121,43 @@ def test_roc_data_matches_jax(jax_checkpoint, monkeypatch, tmp_path):
     assert ((diff <= 1e-4) | (diff <= step + 1e-12)).all(), diff.max(axis=0)
     for name in ("port", "jax"):
         assert (tmp_path / name / "final-outputs" / "roc-comparison.png").exists()
+
+
+def test_sharded_anomalous_metrics_matches_jax(jax_checkpoint, monkeypatch,
+                                              tmp_path):
+    """The JAX package's `sharded_anomalous_metrics` on a mesh of one device
+    against the port's without a mesh: 4 slices in chunks of 3, so the
+    second chunk is wrap-padded with 2 slices of the first; the
+    reconstructions within 1e-5 and the same CSV text."""
+    from anoddpm_tpu.parallel.mesh import make_mesh
+    patch_samplers(monkeypatch, 3)
+    recons, csvs = {}, {}
+    for name, mod in (("jax", jdetect), ("port", tdetect)):
+        real = mod.M.batched_anomaly_metrics
+
+        def recording(images, recon, masks, real=real, name=name):
+            recons[name] = np.array(recon)
+            return real(images, recon, masks)
+
+        monkeypatch.setattr(mod.M, "batched_anomaly_metrics", recording)
+        root = tmp_path / name
+        root.mkdir()
+        os.symlink(jax_checkpoint / "model", root / "model")
+        if name == "jax":
+            args, em, sched = jdetect._load_eval_model(str(root), "sw")
+            extra = (make_mesh(1),)
+        else:
+            args, em, sched = tdetect._load_eval_model(str(root), "sw",
+                                                       device="cpu")
+            extra = (None,)
+        mod.sharded_anomalous_metrics(args, em, sched, *extra,
+                                      root_dir=str(root), t_distance=10,
+                                      max_volumes=1, chunk_per_device=3)
+        csvs[name] = (root / "metrics" / "argssw.csv").read_text()
+    assert recons["port"].shape == recons["jax"].shape == (4, 32, 32, 1)
+    np.testing.assert_allclose(recons["port"], recons["jax"], atol=1e-5, rtol=0)
+    assert csvs["port"] == csvs["jax"]
+    assert csvs["port"].startswith("dice,ssim,iou,")
 
 
 class TinyFlax(fnn.Module):
@@ -253,16 +294,26 @@ def test_cli_modes_run_on_the_cpu(jax_checkpoint, monkeypatch, tmp_path, capsys)
 
 
 def test_unported_sweep_parts_raise(jax_checkpoint, monkeypatch, tmp_path):
-    """The context-encoder curve and a mesh name their ROADMAP items; the
-    randParam noise runs validation now."""
+    """The parts that once raised run now: the context-encoder curve through
+    the CLI (`CE=`, trained for 2 steps here on the checkpoint's own config),
+    and the randParam noise through validation."""
     os.symlink(jax_checkpoint / "model", tmp_path / "model")
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*context-encoder"):
-        tdetect.main(["sw", "roc", "CE=256syn64s2d"], device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.*data parallel"):
-        tdetect.graph_data(token="sw", mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.*data parallel"):
-        tdetect.roc_data(["sw"], mesh=object(), device="cpu")
+    os.makedirs(tmp_path / "configs")
+    import json
+    with open(tmp_path / "configs" / "argssw.json", "w") as f:
+        json.dump({**ARGS, "arg_num": "sw"}, f)
+    from anoddpm_torch import baselines
+    train_ce = baselines.train_context_encoder
+    monkeypatch.setattr(baselines, "train_context_encoder",
+                        lambda args, root_dir, steps, device: train_ce(
+                            args, root_dir=root_dir, steps=2, batch_size=2,
+                            base_channels=8, device=device))
+    tdetect.main(["sw", "roc", "CE=sw"], device="cpu")
+    header, rows = read_rows(tmp_path / "metrics" / "roc-comparison.csv")
+    assert header == ["argssw_fpr", "argssw_tpr", "context-encoder_fpr",
+                      "context-encoder_tpr"]
+    assert (tmp_path / "metrics" / "argssw-ce.csv").exists()
     args = defaultdict_from_json({**ARGS, "arg_num": "rp",
                                   "noise_fn": "simplex_randParam"})
     dice = tdetect.anomalous_validation((args, TinyTorch((0.5, 0.0)), ts.make_schedule(

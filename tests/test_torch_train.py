@@ -354,15 +354,19 @@ class StandIn(torch.nn.Module):
 
 
 def test_unported_options_raise(tmp_path):
-    """remat and train_substeps > 1 still raise, naming their ROADMAP item;
-    save_imgs, save_vids and testing(save_videos=True) now write their
-    files (the epoch-0 sample grid; the test-set video at lambda = 100)."""
+    """remat and train_substeps > 1 run now (an unknown remat policy
+    raises): 2 substeps of iters_per_epoch 4 take 4 steps an epoch in 2
+    dispatches; save_imgs, save_vids and testing(save_videos=True) write
+    their files (the epoch-0 sample grid; the test-set video at lambda =
+    100)."""
     tsched = ts.make_schedule(ts.get_beta_schedule(T, "cosine"))
-    with pytest.raises(NotImplementedError, match="remat.*ROADMAP"):
-        ttr.make_train_step(tsched, None, remat="dots")
-    args = defaultdict_from_json({**SMOKE, "train_substeps": 2})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttrain.train(args, root_dir=str(tmp_path), device="cpu")
+    with pytest.raises(ValueError, match="remat"):
+        ttr.make_train_step(tsched, None, remat="all")
+    args = defaultdict_from_json({**SMOKE, "arg_num": "tsub", "train_substeps": 2,
+                                  "iters_per_epoch": 4, "skip_test_eval": True})
+    state = ttrain.train(args, root_dir=str(tmp_path), max_epochs=0,
+                         device="cpu")
+    assert state.step == 4
     root = tmp_path / "art"
     args = defaultdict_from_json({**SMOKE, "arg_num": "tsave", "save_imgs": True,
                                   "save_vids": True, "skip_test_eval": True})
