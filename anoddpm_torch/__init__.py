@@ -18,7 +18,9 @@ Partial-diffusion anomaly detection with multi-octave simplex noise, as in
   (`anoddpm_torch.parallel`), with remat and substeps,
 - the context-encoder baseline (`anoddpm_torch.baselines`), the paper's
   figures (`anoddpm_torch.figures`) and the import of the reference's
-  PyTorch checkpoints (`anoddpm_torch.compat.torch_import`).
+  PyTorch checkpoints (`anoddpm_torch.compat.torch_import`),
+- the quality campaigns that train a configuration to its recipe and score
+  it against the JAX package's seed band (`anoddpm_torch.campaigns`).
 
 The package never imports `jax`, `flax` or `anoddpm_tpu`; it keeps its own
 copies of the JAX-free pieces it needs.  Importing it imports nothing heavy.

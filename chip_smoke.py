@@ -86,7 +86,13 @@ PyTorch built for CUDA.  Phases, each of which fails the run when it fails:
 14. the context encoder at 256^2 (a short training, one volume scored, no
    K1/K2 launch), every figure generator at 32^2 under the JAX package's
    file names, and the host C++ noise oracle built by g++ here, holding the
-   table-path field computed on the card.
+   table-path field computed on the card;
+15. the quality campaign: `campaigns.flagship.run` under a directory in
+   build/ on an args256syn128 copy at full width, cut to EPOCHS 2 x 4
+   steps, 1 anomalous volume, the test-set suite at 4 images, figures off:
+   every stage with exact launches (per train step, per DDPM-200 and
+   DDIM-15 group, the suite), a rerun that skips every stage (no train
+   call, no launch), then 3 epochs, which resume from params-final.
 
 From phase 13 on, every (shape, dtype) that K2 and K2b launch at is
 recorded, and after each phase K2 and K2b are held against their plain
@@ -2240,6 +2246,124 @@ def native_path():
     require(med < 1e-6 and within >= 0.99, "native oracle: table path differs")
 
 
+# The quality campaign at a cut depth: args256syn128 at full width with only
+# EPOCHS, iters_per_epoch and the anomalous volumes cut, the test-set suite
+# at CAMPAIGN_TEST_IMAGES images and the figures off.
+CAMPAIGN_TOKEN = "campaign"
+CAMPAIGN_CUTS = {"EPOCHS": 2, "iters_per_epoch": 4, "anomalous_volumes": 1}
+CAMPAIGN_TEST_IMAGES = 4
+
+
+def campaign_path(k2_per_forward, card):
+    """`campaigns.flagship.run` under a directory in build/: every stage
+    runs with exact launches (per train step, per DDPM-200 and DDIM-15
+    volume group, for the test-set suite); a second run skips every stage
+    (no train call, no launch); a third at one epoch more resumes from
+    params-final (RESUME_FINAL) and scores DDIM-15 again."""
+    import numpy as np
+    from anoddpm_torch.campaigns import flagship
+    from anoddpm_torch.campaigns._results import FLAGSHIP, load_results
+    from anoddpm_torch.ops.group_norm_silu import BACKWARD_LAUNCHES
+    calls = []
+
+    def counted(stage_of, fn):
+        def wrapper(*a, **k):
+            torch.cuda.synchronize()
+            before, t0 = torch_launches(), time.time()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            calls.append((stage_of(a, k), time.time() - t0,
+                          tuple(x - y for x, y in zip(torch_launches(), before))))
+            return out
+        return wrapper
+
+    real = {n: getattr(flagship, n) for n in
+            ("train", "anomalous_metric_calculation", "testing")}
+    flagship.train = counted(lambda a, k: f"train {k.get('resume')}",
+                             real["train"])
+    flagship.anomalous_metric_calculation = counted(
+        lambda a, k: str(k["args"]["sampler"]),
+        real["anomalous_metric_calculation"])
+    flagship.testing = counted(lambda a, k: "testing", real["testing"])
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    iters, epochs = CAMPAIGN_CUTS["iters_per_epoch"], CAMPAIGN_CUTS["EPOCHS"]
+    try:
+        with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build"),
+                                         prefix="campaign-") as root:
+            with open(os.path.join(ROOT, "configs", f"args{CONFIG}.json")) as f:
+                cfg = {**json.load(f), **CAMPAIGN_CUTS}
+            os.makedirs(os.path.join(root, "configs"))
+            with open(os.path.join(root, "configs",
+                                   f"args{CAMPAIGN_TOKEN}.json"), "w") as f:
+                json.dump(cfg, f)
+            runs = []
+            for extra in ({}, {}, {"epochs": epochs + 1, "skip_testing": True,
+                                   "protocols": ["ddim15_eta1"]}):
+                calls.clear()
+                reset_launches()
+                t0 = time.time()
+                flagship.run(root_dir=root, token=CAMPAIGN_TOKEN,
+                             skip_figures=True,
+                             test_images=CAMPAIGN_TEST_IMAGES, device=DEVICE,
+                             **extra)
+                torch.cuda.synchronize()
+                runs.append((list(calls), time.time() - t0, torch_launches()))
+            res = load_results(root, FLAGSHIP)
+    finally:
+        for n, fn in real.items():
+            setattr(flagship, n, fn)
+    sweep_t = int(cfg["T"])
+    t_half = sweep_t // 2
+
+    def per_step(n):
+        return (n, k2_per_forward * n, k2_per_forward * BACKWARD_LAUNCHES * n)
+
+    first = {s: (w, c) for s, w, c in runs[0][0]}
+    steps = (epochs + 1) * iters
+    want = {
+        "train None": tuple(a + b for a, b in zip(
+            per_step(steps), (0, k2_per_forward * sweep_t, 0))),
+        "ddpm": (LAMBDA + 1, k2_per_forward * LAMBDA, 0),
+        "ddim": (15 + 1, k2_per_forward * 15, 0),
+        "testing": (t_half + 1, k2_per_forward * (sweep_t + t_half), 0)}
+    for stage, counts in want.items():
+        require(stage in first, f"campaign: stage {stage} did not run")
+        log(f"campaign stage {stage}: {first[stage][0]:.1f} s, launches K1 "
+            f"{first[stage][1][0]}, K2 {first[stage][1][1]}, K2b "
+            f"{first[stage][1][2]} (expected {counts})")
+        require(first[stage][1] == counts,
+                f"campaign {stage}: launches {first[stage][1]} != {counts}")
+    log(f"campaign: per train step K1 1, K2 {k2_per_forward}, K2b "
+        f"{k2_per_forward * BACKWARD_LAUNCHES}; the train stage adds the "
+        f"{sweep_t}-forward VLB sweep of epoch 0")
+    require(runs[1][0] == [] and runs[1][2] == (0, 0, 0),
+            f"campaign rerun: calls {runs[1][0]}, launches {runs[1][2]}")
+    third = {s: (w, c) for s, w, c in runs[2][0]}
+    want3 = {"train RESUME_FINAL": per_step(2 * iters),
+             "ddim": (15 + 1, k2_per_forward * 15, 0)}
+    require(sorted(third) == sorted(want3), f"campaign extension: {sorted(third)}")
+    for stage, counts in want3.items():
+        require(third[stage][1] == counts,
+                f"campaign extension {stage}: {third[stage][1]} != {counts}")
+    keys = {"train_epochs", f"train_seconds@{epochs}", f"train_slice@{epochs}",
+            f"train_seconds@{epochs + 1}", f"train_slice@{epochs + 1}",
+            f"flagship_ddpm200@{epochs}", f"flagship_ddim15_eta1@{epochs}",
+            f"flagship_ddim15_eta1@{epochs + 1}", f"testing@{epochs}"}
+    require(set(res) == keys, f"campaign results: {sorted(set(res) ^ keys)}")
+    require(res[f"train_slice@{epochs + 1}"] == [epochs, epochs + 1],
+            f"campaign extension slice {res[f'train_slice@{epochs + 1}']}")
+    values = [v for k in keys if k.startswith(("flagship_", "testing@"))
+              for v in res[k].values()]
+    require(all(np.isfinite(values)), "campaign: non-finite results")
+    log(f"campaign ({card}): run 1 {runs[0][1]:.1f} s (every stage), run 2 "
+        f"{runs[1][1]:.2f} s (every stage skipped, no launch), run 3 "
+        f"{runs[2][1]:.1f} s ({epochs} -> {epochs + 1} epochs, RESUME_FINAL, "
+        f"{third['train RESUME_FINAL'][0]:.1f} s of training, DDIM-15 "
+        f"{third['ddim'][0]:.1f} s); DDPM-200 AUC "
+        f"{res[f'flagship_ddpm200@{epochs}']['auc']:.4f} after {steps} steps")
+    return [a + b for a, b in zip(runs[0][2], runs[2][2])]
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2338,6 +2462,9 @@ def main():
     shapes_of("MRI configuration")
     phase("MRI configuration")
     counts.update(mri_counts)
+    counts["campaign"] = campaign_path(len(sites), card)
+    shapes_of("campaign")
+    phase("campaign")
     k2b_row["max_abs_err"] = max(k2b_row["max_abs_err"], k2b_worst,
                                  shape_worst[1])
     k1_row["max_abs_err"] = max(k1_row["max_abs_err"], k1_worst)

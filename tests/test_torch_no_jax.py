@@ -29,7 +29,12 @@ def test_import_loads_no_jax():
             "anoddpm_torch.ops.simplex, anoddpm_torch.parallel, "
             "anoddpm_torch.parallel.mesh, anoddpm_torch.baselines, "
             "anoddpm_torch.figures, anoddpm_torch.models.context_encoder, "
-            "anoddpm_torch.compat.torch_import, anoddpm_torch.ops.native; "
+            "anoddpm_torch.compat.torch_import, anoddpm_torch.ops.native, "
+            "anoddpm_torch.campaigns, anoddpm_torch.campaigns._results, "
+            "anoddpm_torch.campaigns.band, anoddpm_torch.campaigns.flagship, "
+            "anoddpm_torch.campaigns.seed_replication, "
+            "anoddpm_torch.campaigns.quality_compare, "
+            "anoddpm_torch.campaigns.model_size_quality; "
             "bad = [m for m in ('jax', 'flax', 'optax', 'anoddpm_tpu', "
             "'pandas', 'matplotlib', 'imageio', 'cv2', 'PIL', 'nibabel') "
             "if m in sys.modules]; print(bad); sys.exit(1 if bad else 0)")
@@ -42,7 +47,11 @@ def test_import_loads_no_jax():
     "anoddpm_torch.parallel", "anoddpm_torch.parallel.mesh",
     "anoddpm_torch.baselines", "anoddpm_torch.figures",
     "anoddpm_torch.models.context_encoder", "anoddpm_torch.compat.torch_import",
-    "anoddpm_torch.ops.native"])
+    "anoddpm_torch.ops.native", "anoddpm_torch.campaigns",
+    "anoddpm_torch.campaigns._results", "anoddpm_torch.campaigns.band",
+    "anoddpm_torch.campaigns.flagship", "anoddpm_torch.campaigns.seed_replication",
+    "anoddpm_torch.campaigns.quality_compare",
+    "anoddpm_torch.campaigns.model_size_quality"])
 def test_new_modules_load_no_jax_or_writers(module):
     """Each module alone loads no jax, flax, optax, matplotlib or imageio."""
     code = (f"import sys, {module}; "

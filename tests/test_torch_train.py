@@ -181,6 +181,45 @@ def test_train_step_matches_jax(jax_side):
                                    rtol=1e-4, atol=1e-12, err_msg=n)
 
 
+def test_train_steps_match_jax_at_space_to_depth_2():
+    """Three train steps of the UNet on a 2 x 2 patchified grid (the
+    256syn64s2d family's option) against the JAX trainer from the same
+    parameters, with JAX's t and one noise bank: each step's loss and grad
+    norm, the first step's gradients, and the parameters after three
+    steps."""
+    cfg = CONFIGS["s2d2"]
+    fmodel, params, _ = flax_and_port(cfg)
+    jsched = make_schedule(get_beta_schedule(T, "cosine"))
+    jsamp, tsamp = bank_samplers((BATCH, 32, 32, 1))
+    tx = jtr.make_optimizer(LR, 0.0, 1.0)
+    jstep = jax.jit(jtr.make_train_step(fmodel, jsched, tx, jsamp, "l2",
+                                        max_t=MAX_T))
+    key = jax.random.key(11)
+    xs = batches(3)
+    jstate = jtr.TrainState(step=jnp.zeros((), jnp.int32), params=params,
+                            ema_params=params, opt_state=tx.init(params))
+    model = UNet(**cfg)
+    model.load_state_dict(unet_state_dict_from_flax(params))
+    state = ttr.init_train_state(model, ttr.make_optimizer(model.parameters(), LR))
+    step = ttr.make_train_step(ts.make_schedule(ts.get_beta_schedule(T, "cosine")),
+                               tsamp, "l2", max_t=MAX_T)
+    for i in range(3):
+        jstate, want = jstep(jstate, jnp.asarray(xs[i]), key)
+        t = torch.from_numpy(jax_t(key, i).astype(np.int64))
+        got = step(state, nchw(xs[i]), torch.Generator(), t=t)
+        np.testing.assert_allclose(float(got["loss"]), float(want["loss"]),
+                                   rtol=1e-5, err_msg=f"step {i}")
+        np.testing.assert_allclose(float(got["grad_norm"]),
+                                   float(want["grad_norm"]), rtol=1e-5,
+                                   err_msg=f"step {i}")
+    # Adam moves elements whose gradient is near 0 by up to lr a step with
+    # a rounding-set sign: parameters within 3 lr after 3 steps
+    final = torch_tree(jstate.params)
+    for n, p in state.model.named_parameters():
+        np.testing.assert_allclose(p.detach().numpy(), final[n], rtol=0,
+                                   atol=3 * LR + 1e-6, err_msg=n)
+
+
 def test_resume_from_jax_checkpoint_matches_jax(jax_side, tmp_path):
     """JAX trains 2 steps and saves; the port restores model, EMA and AdamW
     from that checkpoint and takes step 3, which matches JAX's step 3."""
