@@ -12,6 +12,10 @@ from typing import Any, Dict
 
 FLAGSHIP = "results/torch_flagship_quality.json"
 SEED_REPLICATION = "results/torch_seed_replication.json"
+DIFFUSE_CALIBRATION = "results/torch_diffuse_calibration.json"
+TRAIN_LONGER = "results/torch_train_longer.json"
+DENSE_SWEEP = "results/torch_dense_sweep_full.json"
+F3_S2D64 = "results/torch_f3_s2d64.json"
 
 
 def load_results(root_dir: str, name: str) -> Dict[str, Any]:

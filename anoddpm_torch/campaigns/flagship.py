@@ -35,7 +35,7 @@ import json
 import os
 import sys
 import time
-from typing import Any, Dict, Iterable, Optional, Tuple
+from typing import Any, Dict, Iterable, Optional
 
 from .. import figures
 from ..config import load_args
@@ -48,6 +48,7 @@ from ..ops.noise import sampler_from_args
 from ..train import train
 from . import band
 from ._results import FLAGSHIP, load_results, save_results
+from ._stages import train_gate
 
 TOKEN = "256syn128"
 PROTOCOLS = {
@@ -57,23 +58,6 @@ PROTOCOLS = {
 METRICS = ("auc", "dice", "ssim", "iou", "precision", "recall", "fpr")
 SUBSTEPS = 4
 TEST_IMAGES = 16
-
-
-def train_gate(root_dir: str, token: str, target: int
-               ) -> Tuple[int, bool, Optional[str]]:
-    """(epochs params-final records, whether to train, the resume mode)."""
-    base = os.path.join(root_dir, "model", f"diff-params-ARGS={token}")
-    meta_path = os.path.join(base, "params-final", "meta.json")
-    recorded = 0
-    if os.path.exists(meta_path):
-        with open(meta_path) as f:
-            recorded = int(json.load(f).get("n_epoch", 0))
-    if recorded >= target:
-        return recorded, False, None
-    ckpt_dir = os.path.join(base, "checkpoint")
-    if os.path.isdir(ckpt_dir) and os.listdir(ckpt_dir):
-        return recorded, True, "RESUME_RECENT"
-    return recorded, True, "RESUME_FINAL" if recorded > 0 else None
 
 
 def run(root_dir: str = ".", token: str = TOKEN, epochs: Optional[int] = None,

@@ -92,7 +92,19 @@ PyTorch built for CUDA.  Phases, each of which fails the run when it fails:
    steps, 1 anomalous volume, the test-set suite at 4 images, figures off:
    every stage with exact launches (per train step, per DDPM-200 and
    DDIM-15 group, the suite), a rerun that skips every stage (no train
-   call, no launch), then 3 epochs, which resume from params-final.
+   call, no launch), then 3 epochs, which resume from params-final;
+16. the s2d64 campaigns: args256syn64s2d at full width (256^2 through a
+   space-to-depth of 2 into a 128^2 UNet of base 64, bf16, batch 8, 2
+   channels per GroupNorm group at the top level), K2's device-only ms
+   per forward at batch 4 and K2b's per train step at batch 8 against
+   their bytes bounds, K1 at the training batch's 8 fields; then under a
+   directory in build/, cut to EPOCHS 2 x 8 steps and 1 volume with the
+   test-set suite off: seed 1 trained by `seed_replication.
+   ensure_trained`, `diffuse_calibration` at 2 severities,
+   `train_longer` one epoch further (RESUME_FINAL) and its three
+   protocols, `dense_sweep` at every 250th lambda on that model (its
+   train gate skips), each call with exact launches; a rerun of all of
+   them calls and launches nothing.
 
 From phase 13 on, every (shape, dtype) that K2 and K2b launch at is
 recorded, and after each phase K2 and K2b are held against their plain
@@ -147,10 +159,13 @@ K2B_HOST_SHAPE = (8, 512, 8, 8)
 SMALL_TRAIN_TOL = 1e-4      # small fp32 train step, card vs CPU
 TRAIN_CUTS = {"EPOCHS": 2, "iters_per_epoch": 4, "checkpoint_every": 2}
 # The detection suite's shapes: K1 at methods A / A_fixedT's frequencies
-# 2^1..2^7 for 1 field (methods, validation), 4 (a volume group) and 32 (a
-# lambda chunk: q-jump t = lambda - 1); K2 at batch 1, 19 and 32.
+# 2^1..2^7 for 1 field (methods, validation), 4 (a volume group), 8 (a
+# train batch: the s2d64 noise is drawn at 256^2, before the
+# space-to-depth) and 32 (a lambda chunk: q-jump t = lambda - 1); K2 at
+# batch 1, 19 and 32.
 K1_FREQUENCIES = [float(2 ** i) for i in range(1, 8)]
 K1_FIELD_T = {1: [249.0], 4: [0.0, 57.0, 123.0, 199.0],
+              8: [float(97 * i + 13) for i in range(8)],
               32: [float(5 * i + 4) for i in range(32)]}
 K2_BATCHES = (1, 19, 32)
 DDIM_PROTOCOLS = ((15, 1.0), (25, 0.0))     # (steps, eta)
@@ -868,7 +883,7 @@ def probe_writers():
 
 def check_k1_shapes():
     """K1 against its plain version at the suite's shapes: frequency 2^1 ..
-    2^7 (6 octaves, persistence 0.8) at n = 1, 4 and 32 fields of 256^2,
+    2^7 (6 octaves, persistence 0.8) at n = 1, 4, 8 and 32 fields of 256^2,
     the standing tolerance; device-only ms and the issue bound of each."""
     from anoddpm_torch.ops import simplex as sx
     hw = (256, 256)
@@ -898,6 +913,21 @@ def check_k1_shapes():
                 f"{dev:.4f} ms device-only, bound {bound:.4f} ms "
                 f"({bound / dev:.1%} of it)")
     return worst, table
+
+
+def k2_inputs(shape, dtype, gen, backward=False):
+    """Seeded K2 inputs at (shape, dtype): x, gamma, beta; with `backward`
+    also K2b's output gradient and K2's mean and rstd of x."""
+    from anoddpm_torch.ops import group_norm_silu as gn
+    c = shape[1]
+    x = (torch.randn(shape, generator=gen, device=DEVICE) * 1.7 + 0.4).to(dtype)
+    gamma = 1 + 0.1 * torch.randn(c, generator=gen, device=DEVICE)
+    beta = 0.1 * torch.randn(c, generator=gen, device=DEVICE)
+    if not backward:
+        return x, gamma, beta
+    go = torch.randn(shape, generator=gen, device=DEVICE).to(dtype)
+    _, mean, rstd = gn.group_norm_silu_with_stats(x, gamma, beta)
+    return x, gamma, beta, go, mean, rstd
 
 
 def k2_case(x, gamma, beta):
@@ -933,11 +963,7 @@ def check_k2_batches(sites):
     for n in K2_BATCHES:
         timing = {}
         for shape, dtype in sorted(set(sites), key=lambda s: (s[0][1], s[0][2], str(s[1]))):
-            c = shape[1]
-            x = (torch.randn((n,) + shape[1:], generator=gen, device=DEVICE) * 1.7
-                 + 0.4).to(dtype)
-            gamma = 1 + 0.1 * torch.randn(c, generator=gen, device=DEVICE)
-            beta = 0.1 * torch.randn(c, generator=gen, device=DEVICE)
+            x, gamma, beta = k2_inputs((n,) + shape[1:], dtype, gen)
             worst = max(worst, k2_case(x, gamma, beta))
             dev = graph_ms(lambda: gn.group_norm_silu(x, gamma, beta), reps=10)
             bound = 2 * x.numel() * x.element_size() / HBM_BYTES_PER_S * 1e3
@@ -1742,22 +1768,16 @@ def check_launched_shapes(what):
     """K2 and K2b against their plain versions, under `k2_case`'s and
     `k2b_case`'s rules, at every (shape, dtype) they launched at and that
     no earlier call held.  Returns the worst K2 and K2b max|d|."""
-    from anoddpm_torch.ops import group_norm_silu as gn
     gen = torch.Generator(device=DEVICE).manual_seed(18)
     new = {k: sorted(LAUNCHED[k] - CHECKED[k], key=str) for k in LAUNCHED}
     worst = {"K2": 0.0, "K2b": 0.0}
     for key, cases in new.items():
         for shape, dtype in cases:
-            c = shape[1]
-            x = (torch.randn(shape, generator=gen, device=DEVICE) * 1.7
-                 + 0.4).to(dtype)
-            gamma = 1 + 0.1 * torch.randn(c, generator=gen, device=DEVICE)
-            beta = 0.1 * torch.randn(c, generator=gen, device=DEVICE)
             if key == "K2":
-                err = k2_case(x, gamma, beta)
+                err = k2_case(*k2_inputs(shape, dtype, gen))
             else:
-                go = torch.randn(shape, generator=gen, device=DEVICE).to(dtype)
-                _, mean, rstd = gn.group_norm_silu_with_stats(x, gamma, beta)
+                x, gamma, beta, go, mean, rstd = k2_inputs(shape, dtype, gen,
+                                                           backward=True)
                 err, _ = k2b_case(x, go, gamma, beta, mean, rstd)
             worst[key] = max(worst[key], err)
             CHECKED[key].add((shape, dtype))
@@ -2254,6 +2274,20 @@ CAMPAIGN_CUTS = {"EPOCHS": 2, "iters_per_epoch": 4, "anomalous_volumes": 1}
 CAMPAIGN_TEST_IMAGES = 4
 
 
+def counted(calls, stage_of, fn):
+    """`fn` that appends (stage_of(args, kwargs), wall seconds, its (K1, K2,
+    K2b) launches) to `calls` at each call."""
+    def wrapper(*a, **k):
+        torch.cuda.synchronize()
+        before, t0 = torch_launches(), time.time()
+        out = fn(*a, **k)
+        torch.cuda.synchronize()
+        calls.append((stage_of(a, k), time.time() - t0,
+                      tuple(x - y for x, y in zip(torch_launches(), before))))
+        return out
+    return wrapper
+
+
 def campaign_path(k2_per_forward, card):
     """`campaigns.flagship.run` under a directory in build/: every stage
     runs with exact launches (per train step, per DDPM-200 and DDIM-15
@@ -2265,26 +2299,14 @@ def campaign_path(k2_per_forward, card):
     from anoddpm_torch.campaigns._results import FLAGSHIP, load_results
     from anoddpm_torch.ops.group_norm_silu import BACKWARD_LAUNCHES
     calls = []
-
-    def counted(stage_of, fn):
-        def wrapper(*a, **k):
-            torch.cuda.synchronize()
-            before, t0 = torch_launches(), time.time()
-            out = fn(*a, **k)
-            torch.cuda.synchronize()
-            calls.append((stage_of(a, k), time.time() - t0,
-                          tuple(x - y for x, y in zip(torch_launches(), before))))
-            return out
-        return wrapper
-
     real = {n: getattr(flagship, n) for n in
             ("train", "anomalous_metric_calculation", "testing")}
-    flagship.train = counted(lambda a, k: f"train {k.get('resume')}",
+    flagship.train = counted(calls, lambda a, k: f"train {k.get('resume')}",
                              real["train"])
     flagship.anomalous_metric_calculation = counted(
-        lambda a, k: str(k["args"]["sampler"]),
+        calls, lambda a, k: str(k["args"]["sampler"]),
         real["anomalous_metric_calculation"])
-    flagship.testing = counted(lambda a, k: "testing", real["testing"])
+    flagship.testing = counted(calls, lambda a, k: "testing", real["testing"])
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     iters, epochs = CAMPAIGN_CUTS["iters_per_epoch"], CAMPAIGN_CUTS["EPOCHS"]
     try:
@@ -2362,6 +2384,187 @@ def campaign_path(k2_per_forward, card):
         f"{third['ddim'][0]:.1f} s); DDPM-200 AUC "
         f"{res[f'flagship_ddpm200@{epochs}']['auc']:.4f} after {steps} steps")
     return [a + b for a, b in zip(runs[0][2], runs[2][2])]
+
+
+# The s2d64 campaigns at a cut depth: args256syn64s2d at full width (256^2
+# images through a space-to-depth of 2 into a 128^2 UNet of base 64, bf16,
+# batch 8; 2 channels per GroupNorm group at the top level) with only
+# EPOCHS, iters_per_epoch and the anomalous volumes cut and the test-set
+# suite off; the diffuse calibration at 2 severities, the dense sweep at
+# every S2D64_LAMBDA_STEP-th lambda (one chunk).
+S2D64_CONFIG = "256syn64s2d"
+S2D64_SEED = 1
+S2D64_CUTS = {"EPOCHS": 2, "iters_per_epoch": 8, "anomalous_volumes": 1,
+              "skip_test_eval": True}
+S2D64_SEVERITIES = (1.0, 2.0)
+S2D64_LAMBDA_STEP = 250
+
+
+def s2d64_kernel_times(model):
+    """Device-only ms of K2 per UNet forward at the detection batch and of
+    K2b per train step at the training batch, at `model`'s sites, each
+    beside its bytes bound, with the top-level site's own share.  Returns
+    the number of K2 sites per forward."""
+    from anoddpm_torch.ops import group_norm_silu as gn
+    gen = torch.Generator(device=DEVICE).manual_seed(19)
+    for n, key in ((BATCH, "K2"), (TRAIN_BATCH, "K2b")):
+        sites, timing = k2_sites(model, n), {}
+        for shape, dtype in set(sites):
+            if key == "K2":
+                x, gamma, beta = k2_inputs(shape, dtype, gen)
+                fn = lambda: gn.group_norm_silu(x, gamma, beta)
+                nbytes = 2 * x.numel() * x.element_size()
+            else:
+                x, gamma, beta, go, mean, rstd = k2_inputs(shape, dtype, gen,
+                                                           backward=True)
+                fn = lambda: gn.group_norm_silu_backward(x, go, gamma, beta,
+                                                         mean, rstd)
+                nbytes = (3 * x.numel() * x.element_size() + 4 * shape[1] * 4
+                          + 2 * n * 32 * 4)
+            timing[(shape, dtype)] = (graph_ms(fn, reps=10),
+                                      nbytes / HBM_BYTES_PER_S * 1e3)
+        dev = sum(timing[s][0] for s in sites)
+        bound = sum(timing[s][1] for s in sites)
+        top = [s for s in timing if s[0][2] == max(t[0][2] for t in timing)]
+        log(f"{key} at the s2d64 sites, N={n} ({len(sites)} calls per "
+            f"{'forward' if key == 'K2' else 'train step'}): {dev:.3f} ms "
+            f"device-only, bound {bound:.3f} ms ({bound / dev:.1%} of it); "
+            "top level " + ", ".join(
+                f"{s[0]} {str(s[1])[6:]} {timing[s][0]:.4f} ms vs "
+                f"{timing[s][1]:.4f} ({timing[s][1] / timing[s][0]:.1%})"
+                for s in sorted(top, key=str)))
+    return len(sites)
+
+
+def s2d64_path(card):
+    """The s2d64 campaigns under a directory in build/: seed 1 trained by
+    `seed_replication.ensure_trained`, `diffuse_calibration.run`,
+    `train_longer.run` (extended by one epoch through RESUME_FINAL and
+    scored in its three protocols) and `dense_sweep.run` on that model
+    (its train gate skips), each call with exact launches; then all of
+    them again, which call and launch nothing.  Returns the (K1, K2, K2b)
+    launches."""
+    import numpy as np
+    from anoddpm_torch.campaigns import (_stages, dense_sweep,
+                                         diffuse_calibration,
+                                         seed_replication, train_longer)
+    from anoddpm_torch.campaigns._results import (DENSE_SWEEP,
+                                                  DIFFUSE_CALIBRATION,
+                                                  TRAIN_LONGER, load_results)
+    from anoddpm_torch.config import load_args
+    from anoddpm_torch.ops.group_norm_silu import BACKWARD_LAUNCHES
+    t_phase = time.time()
+    args = load_args(S2D64_CONFIG, config_dir=os.path.join(ROOT, "configs"))
+    model = seeded_model(args)
+    k2 = s2d64_kernel_times(model)
+    del model
+    torch.cuda.empty_cache()
+    token = f"{S2D64_CONFIG}_s{S2D64_SEED}"
+    epochs, sweep_t = S2D64_CUTS["EPOCHS"], int(args["T"])
+    per_epoch = seed_replication.SUBSTEPS * max(
+        S2D64_CUTS["iters_per_epoch"] // seed_replication.SUBSTEPS, 1)
+    calls = []
+    wrapped = {
+        (seed_replication, "train"): lambda a, k: "train",
+        (train_longer, "train"): lambda a, k: f"extend {k['resume']}",
+        (_stages, "anomalous_metric_calculation"): lambda a, k:
+            f"diffuse {k['args']['lesion_severity']:g}"
+            if k["args"].get("lesion_kind") == "diffuse" else
+            f"longer {k['args']['sampler']}{k['args'].get('ddim_steps', '')}",
+        (dense_sweep, "train"): lambda a, k: "dense train",
+        (dense_sweep, "graph_data"): lambda a, k: "graph"}
+    real = {key: getattr(*key) for key in wrapped}
+    for (mod, name), stage_of in wrapped.items():
+        setattr(mod, name, counted(calls, stage_of, real[(mod, name)]))
+    lambdas = list(range(0, sweep_t, S2D64_LAMBDA_STEP))
+
+    def campaigns():
+        seed_replication.ensure_trained(S2D64_CONFIG, S2D64_SEED, root, DEVICE)
+        diffuse_calibration.run(S2D64_SEVERITIES, root, token, DEVICE)
+        train_longer.run(S2D64_SEED, epochs + 1, root, DEVICE)
+        dense_sweep.run(S2D64_LAMBDA_STEP, 1, root, token, DEVICE)
+
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    try:
+        with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build"),
+                                         prefix="s2d64-") as root:
+            os.makedirs(os.path.join(root, "configs"))
+            # the dense sweep's gate reads the epochs of the model it
+            # reuses from that model's config
+            for name, seed in ((S2D64_CONFIG, args["seed"]), (token, S2D64_SEED)):
+                with open(os.path.join(root, "configs", f"args{name}.json"),
+                          "w") as f:
+                    json.dump({**args, **S2D64_CUTS, "seed": seed}, f)
+            runs = []
+            for _ in range(2):
+                calls.clear()
+                reset_launches()
+                t0 = time.time()
+                campaigns()
+                torch.cuda.synchronize()
+                runs.append((list(calls), time.time() - t0, torch_launches()))
+            res = {name: load_results(root, name)
+                   for name in (DIFFUSE_CALIBRATION, TRAIN_LONGER, DENSE_SWEEP)}
+            extended, _, _ = _stages.train_gate(
+                root, train_longer.target_token(S2D64_SEED, epochs + 1),
+                epochs + 1)
+            with open(os.path.join(root, "metrics",
+                                   f"args{token}-lambda.csv")) as f:
+                pooled = [line.split(",") for line in f.read().split()[1:]]
+    finally:
+        for (mod, name), fn in real.items():
+            setattr(mod, name, fn)
+
+    def step_counts(steps):
+        return (steps, k2 * steps, k2 * BACKWARD_LAUNCHES * steps)
+
+    steps = (epochs + 1) * per_epoch
+    want = [("train", tuple(a + b for a, b in zip(
+        step_counts(steps), (0, k2 * sweep_t, 0))))]
+    want += [(f"diffuse {s:g}", (16, k2 * 15, 0)) for s in S2D64_SEVERITIES]
+    want += [("extend RESUME_FINAL", step_counts(2 * per_epoch)),
+             ("longer ddim25", (26, k2 * 25, 0)),
+             ("longer ddim15", (16, k2 * 15, 0)),
+             ("longer ddpm", (LAMBDA + 1, k2 * LAMBDA, 0)),
+             ("graph", (1 + max(lambdas), k2 * max(lambdas), 0))]
+    got = [(stage, c) for stage, _, c in runs[0][0]]
+    for (stage, wall, c), (_, expected) in zip(runs[0][0], want):
+        log(f"s2d64 stage {stage}: {wall:.1f} s, launches K1 {c[0]}, K2 "
+            f"{c[1]}, K2b {c[2]} (expected {expected})")
+    require(got == want, f"s2d64 launches: {got} != {want}")
+    log(f"s2d64: per train step K1 1, K2 {k2}, K2b {k2 * BACKWARD_LAUNCHES} "
+        f"({k2} K2 sites per s2d64 forward); the first train call adds the "
+        f"{sweep_t}-forward VLB sweep of epoch 0")
+    require(runs[1][0] == [] and runs[1][2] == (0, 0, 0),
+            f"s2d64 rerun: calls {runs[1][0]}, launches {runs[1][2]}")
+    diffuse = res[DIFFUSE_CALIBRATION]
+    require(sorted(diffuse) == sorted(diffuse_calibration.key(s)
+                                      for s in S2D64_SEVERITIES),
+            f"diffuse calibration keys {sorted(diffuse)}")
+    longer = res[TRAIN_LONGER]
+    require(sorted(longer) == sorted(
+        train_longer.result_key(c, S2D64_SEED, epochs + 1)
+        for c in train_longer.PROTOCOLS), f"train_longer keys {sorted(longer)}")
+    require(extended == epochs + 1, f"extended model records {extended} epochs")
+    dense = res[DENSE_SWEEP]
+    require(sorted(dense) == ["csv_files", "lambda_step", "sweep_seconds",
+                              "volumes"] and len(dense["csv_files"]) == 1,
+            f"dense sweep results {dense}")
+    require([int(r[0]) for r in pooled] == lambdas, f"pooled rows {pooled}")
+    # lambda = 0 leaves the slice as it is: SSIM 1, AUC 0.5, Dice ~0
+    ssim0, auc0 = float(pooled[0][2]), float(pooled[0][4])
+    require(abs(ssim0 - 1) <= 1e-6 and auc0 == 0.5 and float(pooled[0][1]) < 1e-3,
+            f"pooled lambda = 0 row {pooled[0]}")
+    values = [v for r in (diffuse, longer) for e in r.values()
+              for v in e.values()] + [float(v) for r in pooled for v in r]
+    require(all(np.isfinite(values)), "s2d64: non-finite results")
+    log(f"s2d64 ({card}): run 1 {runs[0][1]:.1f} s, rerun {runs[1][1]:.2f} s "
+        f"(no call, no launch); the phase {time.time() - t_phase:.1f} s; "
+        f"pooled lambda = 0 row (t, dice, ssim, iou, auc) {pooled[0]}; "
+        f"diffuse AUC " + ", ".join(
+            f"sev {s:g} {diffuse[diffuse_calibration.key(s)]['auc']:.4f}"
+            for s in S2D64_SEVERITIES))
+    return runs[0][2]
 
 
 def main():
@@ -2465,6 +2668,9 @@ def main():
     counts["campaign"] = campaign_path(len(sites), card)
     shapes_of("campaign")
     phase("campaign")
+    counts["s2d64"] = s2d64_path(card)
+    shapes_of("s2d64 campaigns")
+    phase("s2d64 campaigns")
     k2b_row["max_abs_err"] = max(k2b_row["max_abs_err"], k2b_worst,
                                  shape_worst[1])
     k1_row["max_abs_err"] = max(k1_row["max_abs_err"], k1_worst)

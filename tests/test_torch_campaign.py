@@ -14,8 +14,10 @@ from unittest import mock
 import numpy as np
 import pytest
 
-from anoddpm_torch.campaigns import (band, flagship, model_size_quality,
-                                     quality_compare, seed_replication)
+from anoddpm_torch.campaigns import (band, dense_sweep, diffuse_calibration,
+                                     f3_s2d64, flagship, model_size_quality,
+                                     quality_compare, seed_replication,
+                                     train_longer)
 from anoddpm_torch.campaigns._results import (FLAGSHIP, SEED_REPLICATION,
                                               load_results, save_results)
 
@@ -173,7 +175,11 @@ def test_entry_points_refuse_without_cuda(monkeypatch, tmp_path):
     for run in (lambda: flagship.main(["--root", str(tmp_path)]),
                 lambda: seed_replication.main(["--root", str(tmp_path)]),
                 lambda: quality_compare.main(["1", "--root", str(tmp_path)]),
-                lambda: model_size_quality.main(["1", "--root", str(tmp_path)])):
+                lambda: model_size_quality.main(["1", "--root", str(tmp_path)]),
+                lambda: diffuse_calibration.main(["--root", str(tmp_path)]),
+                lambda: train_longer.main(["1", "--root", str(tmp_path)]),
+                lambda: dense_sweep.main(["--root", str(tmp_path)]),
+                lambda: f3_s2d64.main(["--root", str(tmp_path)])):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             run()
 

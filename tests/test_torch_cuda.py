@@ -451,3 +451,23 @@ def test_group_norm_silu_backward_launches_per_call(cuda, shape):
     assert sum(kernels.values()) == gn.BACKWARD_LAUNCHES and all(
         "group_norm_silu_bwd" in k for k in kernels), \
         (kernels, [e.key for e in prof.key_averages()])
+
+
+# args256syn64s2d's top-level K2 site: 256^2 images after a space-to-depth
+# of 2 run the UNet at 128^2 with base 64, so GroupNorm(32) has 2 channels
+# per group; batch 4 in detection, 8 in training.
+S2D64_TOP = (64, 128, 128)
+
+
+@pytest.mark.parametrize("n", [4, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_group_norm_silu_s2d64_top(cuda, n, dtype):
+    _check_group_norm_silu(*_inputs((n,) + S2D64_TOP, dtype, cuda, seed=n))
+
+
+@pytest.mark.parametrize("n", [4, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_group_norm_silu_backward_s2d64_top(cuda, n, dtype):
+    x, gamma, beta = _inputs((n,) + S2D64_TOP, dtype, cuda, seed=n + 1)
+    grad_out = torch.randn(x.shape, device=cuda).to(dtype)
+    _check_group_norm_silu_backward(x, grad_out, gamma, beta)

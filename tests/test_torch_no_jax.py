@@ -31,10 +31,15 @@ def test_import_loads_no_jax():
             "anoddpm_torch.figures, anoddpm_torch.models.context_encoder, "
             "anoddpm_torch.compat.torch_import, anoddpm_torch.ops.native, "
             "anoddpm_torch.campaigns, anoddpm_torch.campaigns._results, "
+            "anoddpm_torch.campaigns._stages, "
             "anoddpm_torch.campaigns.band, anoddpm_torch.campaigns.flagship, "
             "anoddpm_torch.campaigns.seed_replication, "
             "anoddpm_torch.campaigns.quality_compare, "
-            "anoddpm_torch.campaigns.model_size_quality; "
+            "anoddpm_torch.campaigns.model_size_quality, "
+            "anoddpm_torch.campaigns.diffuse_calibration, "
+            "anoddpm_torch.campaigns.train_longer, "
+            "anoddpm_torch.campaigns.dense_sweep, "
+            "anoddpm_torch.campaigns.f3_s2d64; "
             "bad = [m for m in ('jax', 'flax', 'optax', 'anoddpm_tpu', "
             "'pandas', 'matplotlib', 'imageio', 'cv2', 'PIL', 'nibabel') "
             "if m in sys.modules]; print(bad); sys.exit(1 if bad else 0)")
@@ -48,10 +53,14 @@ def test_import_loads_no_jax():
     "anoddpm_torch.baselines", "anoddpm_torch.figures",
     "anoddpm_torch.models.context_encoder", "anoddpm_torch.compat.torch_import",
     "anoddpm_torch.ops.native", "anoddpm_torch.campaigns",
-    "anoddpm_torch.campaigns._results", "anoddpm_torch.campaigns.band",
+    "anoddpm_torch.campaigns._results", "anoddpm_torch.campaigns._stages",
+    "anoddpm_torch.campaigns.band",
     "anoddpm_torch.campaigns.flagship", "anoddpm_torch.campaigns.seed_replication",
     "anoddpm_torch.campaigns.quality_compare",
-    "anoddpm_torch.campaigns.model_size_quality"])
+    "anoddpm_torch.campaigns.model_size_quality",
+    "anoddpm_torch.campaigns.diffuse_calibration",
+    "anoddpm_torch.campaigns.train_longer", "anoddpm_torch.campaigns.dense_sweep",
+    "anoddpm_torch.campaigns.f3_s2d64"])
 def test_new_modules_load_no_jax_or_writers(module):
     """Each module alone loads no jax, flax, optax, matplotlib or imageio."""
     code = (f"import sys, {module}; "
