@@ -116,12 +116,13 @@ def work_list(res, seeds: Sequence[int],
     return sorted(work)
 
 
-def aggregate(res, seeds=None) -> None:
+def aggregate(res, seeds=None, cells=None) -> None:
     """Write {cell}/aggregate (mean, population std, n per metric) over
     every {cell}/seed{n} entry in `res`, whatever `seeds` a run was given,
-    so that a one-seed catch-up never overwrites an aggregate of n = 5."""
+    so that a one-seed catch-up never overwrites an aggregate of n = 5;
+    for every cell of MODELS, or for `cells`."""
     del seeds
-    for cells in MODELS.values():
+    for cells in ([cells] if cells is not None else MODELS.values()):
         for cell in cells:
             prefix = f"{cell}/seed"
             keys = sorted(k for k in res if k.startswith(prefix)

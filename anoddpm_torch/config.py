@@ -18,7 +18,7 @@ from collections import defaultdict
 from typing import Any, Dict, List
 
 # The keys of the reference's configs and the JAX package's extensions
-# (the same set as `anoddpm_tpu/config.py:KNOWN_KEYS`).
+# (the set of `anoddpm_tpu/config.py:KNOWN_KEYS`), and one of the port's own.
 KNOWN_KEYS = {
     "img_size", "Batch_Size", "EPOCHS", "T", "base_channels", "beta_schedule",
     "channel_mults", "loss-type", "loss_weight", "train_start", "lr",
@@ -32,6 +32,9 @@ KNOWN_KEYS = {
     "train_substeps", "sampler", "ddim_steps", "ddim_eta", "space_to_depth",
     "bf16_norm", "lesion_kind", "lesion_severity", "recon_repeats",
     "anomalous_volumes",
+    # the port's own: which norms the UNet runs, kernel K2 ("kernel") or the
+    # JAX package's composition ("flax"; models/unet.py)
+    "norm_impl",
     "_note",  # free-form provenance comment in shipped configs
 }
 

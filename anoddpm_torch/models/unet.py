@@ -16,12 +16,23 @@ Submodules carry the flax tree's names (`down_0_0.norm_in`, `mid_attn.qkv`,
 Precision mirrors flax's `dtype`: parameters are fp32; every conv and dense
 casts its input and weight to the compute dtype; norms compute their
 statistics in fp32 and return the activation dtype; `out_norm` and
-`out_conv` run in fp32.  Every norm+SiLU site calls kernel K2
-(`ops.group_norm_silu`) at every shape, and under autograd its gradient
-is kernel K2b; the attention norm (GroupNorm
-without SiLU, outside any kernel in the JAX package) is `F.group_norm` in
-fp32.  The JAX package's `bf16_norm` and `pallas_norm` keys change only how
-flax computes the same norms, so the port reads neither.
+`out_conv` run in fp32.
+
+How the norms compute is the option `norm_impl`:
+
+- "kernel" (the default): every norm+SiLU site calls kernel K2
+  (`ops.group_norm_silu`) at every shape, and under autograd its gradient
+  is kernel K2b; the attention norm (GroupNorm without SiLU, outside any
+  kernel in the JAX package) is `F.group_norm` in fp32.  `bf16_norm` and
+  `pallas_norm` change nothing here.
+- "flax": the JAX package's own composition (`anoddpm_tpu/models/
+  unet.py:48-83`): flax's GroupNorm order in plain PyTorch (`flax_norm`),
+  rounded once to the activation dtype, then SiLU in that dtype, with
+  JAX's gradients; `bf16_norm` is `GroupNorm32(bf16_path=...)`, which
+  leaves the forward as it is and changes where the backward rounds.
+  With `pallas_norm`, a norm+SiLU site whose NHWC shape passes the TPU
+  kernel's gate (`ops.group_norm_silu.eligible`) calls K2 instead, as the
+  JAX package calls its Pallas kernel there.
 """
 
 from __future__ import annotations
@@ -33,7 +44,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.group_norm_silu import group_norm_silu
+from ..ops.group_norm_silu import GROUPS, eligible, group_norm_silu
 
 # Per-resolution channel-multiplier defaults (reference UNet.py:239-251).
 DEFAULT_CHANNEL_MULTS = {
@@ -45,6 +56,7 @@ DEFAULT_CHANNEL_MULTS = {
 }
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+NORM_IMPLS = ("kernel", "flax")
 
 
 def timestep_embedding(t: torch.Tensor, dim: int) -> torch.Tensor:
@@ -136,24 +148,127 @@ class Dense(nn.Module):
                         self.bias.to(self.dtype))
 
 
-class GroupNorm32(nn.Module):
-    """GroupNorm(32) in fp32, returned in the activation dtype."""
+class _JaxSiLU(torch.autograd.Function):
+    """x * logistic(x) as the JAX package computes it on the CPU: in fp32
+    `torch.sigmoid`; in a narrower dtype 1 / (1 + exp(-x)), each op rounded
+    to that dtype, as XLA expands a bf16 logistic.  The gradient is JAX's
+    for the product with its logistic rule, g * s + (g * x) * (s * (1 - s)),
+    each op in x's dtype (torch's autograd of the expansion is another
+    chain of roundings)."""
 
-    def __init__(self, channels: int):
+    @staticmethod
+    def forward(ctx, x):
+        s = (torch.sigmoid(x) if x.dtype in (torch.float32, torch.float64)
+             else 1 / (1 + torch.exp(-x)))
+        ctx.save_for_backward(x, s)
+        return x * s
+
+    @staticmethod
+    def backward(ctx, g):
+        x, s = ctx.saved_tensors
+        return g * s + (g * x) * (s * (1 - s))
+
+
+def _flax_site(x, gamma, beta, bf16_path: bool, silu: bool, eps: float = 1e-5):
+    """flax's GroupNorm(32) on NCHW x (`normalization._compute_stats` with
+    the fast variance, then `_normalize`): fp32 mean and E[x^2], var =
+    max(E[x^2] - mean^2, 0), y = (x - mean) * (rsqrt(var + eps) * gamma) +
+    beta in fp32, rounded once to x's dtype; then `_JaxSiLU` when `silu`.
+    With `bf16_path` the statistics and the centring each take their own
+    fp32 copy of x, as flax's dtype promotion does, so that autograd rounds
+    their gradients to x's dtype one by one and sums them there, as JAX
+    transposes the two converts; without it one copy serves both and the
+    gradient rounds once.  The forward is the same either way."""
+    n, c = x.shape[:2]
+    xs = x.float()
+    xc = x.float() if bf16_path else xs
+    xg = xs.reshape(n, GROUPS, -1)
+    mean = xg.mean(dim=-1)
+    var = torch.clamp((xg * xg).mean(dim=-1) - mean * mean, min=0.0)
+    cg = c // GROUPS
+    bshape = (n, c) + (1,) * (x.dim() - 2)
+    mul = torch.rsqrt(var + eps).repeat_interleave(cg, dim=1) * gamma
+    y = ((xc - mean.repeat_interleave(cg, dim=1).view(bshape)) * mul.view(bshape)
+         + beta.view((1, c) + (1,) * (x.dim() - 2)))
+    y = y.to(x.dtype)
+    return _JaxSiLU.apply(y) if silu else y
+
+
+class _FlaxSite(torch.autograd.Function):
+    """`_flax_site` under autograd, keeping only its inputs (K2's memory, not
+    the composition's fp32 temporaries): the backward runs the composition
+    again under autograd and differentiates it, so the gradient is the
+    composition's own."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, bf16_path, silu):
+        ctx.save_for_backward(x, gamma, beta)
+        ctx.options = (bf16_path, silu)
+        return _flax_site(x, gamma, beta, bf16_path, silu)
+
+    @staticmethod
+    def backward(ctx, grad):
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+            out = _flax_site(*inputs, *ctx.options)
+            grads = torch.autograd.grad(out, inputs, grad)
+        return (*grads, None, None)
+
+
+def flax_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+              bf16_path: bool, silu: bool) -> torch.Tensor:
+    """The JAX package's `GroupNorm32(bf16_path)` on NCHW x in x's dtype,
+    followed by its SiLU when `silu` (`_flax_site`); plain PyTorch, the same
+    ops on the card and on the CPU."""
+    if torch.is_grad_enabled() and (x.requires_grad or gamma.requires_grad
+                                    or beta.requires_grad):
+        return _FlaxSite.apply(x, gamma, beta, bf16_path, silu)
+    return _flax_site(x, gamma, beta, bf16_path, silu)
+
+
+class GroupNorm32(nn.Module):
+    """GroupNorm(32) returned in the activation dtype: `F.group_norm` in
+    fp32 under `norm_impl="kernel"`, the JAX package's composition
+    (`flax_norm`, `bf16_norm` its bf16_path) under "flax"."""
+
+    def __init__(self, channels: int, norm_impl: str = "kernel",
+                 bf16_norm: bool = False):
         super().__init__()
+        if norm_impl not in NORM_IMPLS:
+            raise ValueError(f"norm_impl must be one of {NORM_IMPLS}, "
+                             f"got {norm_impl!r}")
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
+        self.norm_impl = norm_impl
+        self.bf16_norm = bf16_norm
 
     def forward(self, x):
+        if self.norm_impl == "flax":
+            return flax_norm(x, self.weight, self.bias, self.bf16_norm, False)
         return F.group_norm(x.float(), 32, self.weight, self.bias,
                             eps=1e-5).to(x.dtype)
 
 
 class NormSiLU(GroupNorm32):
-    """GroupNorm(32) + SiLU through kernel K2."""
+    """GroupNorm(32) + SiLU.  Kernel K2 under `norm_impl="kernel"`; under
+    "flax", K2 where `pallas_norm` is set and the NHWC shape passes
+    `eligible` (the JAX package's Pallas kernel), else `flax_norm`."""
+
+    def __init__(self, channels: int, norm_impl: str = "kernel",
+                 bf16_norm: bool = False, pallas_norm: bool = False):
+        super().__init__(channels, norm_impl, bf16_norm)
+        self.pallas_norm = pallas_norm
+
+    def uses_kernel(self, x: torch.Tensor) -> bool:
+        """Whether a call on x goes through K2."""
+        n, c, h, w = x.shape
+        return self.norm_impl == "kernel" or (
+            self.pallas_norm and eligible((n, h, w, c), x.dtype))
 
     def forward(self, x):
-        return group_norm_silu(x, self.weight, self.bias)
+        if self.uses_kernel(x):
+            return group_norm_silu(x, self.weight, self.bias)
+        return flax_norm(x, self.weight, self.bias, self.bf16_norm, True)
 
 
 class ResBlock(nn.Module):
@@ -162,13 +277,16 @@ class ResBlock(nn.Module):
 
     def __init__(self, cin: int, cout: int, time_dim: int, dtype: torch.dtype,
                  dropout: float = 0.0, up: bool = False, down: bool = False,
-                 use_conv_skip: bool = False):
+                 use_conv_skip: bool = False, norm_impl: str = "kernel",
+                 bf16_norm: bool = False, pallas_norm: bool = False):
         super().__init__()
         self.up, self.down, self.dropout = up, down, dropout
-        self.norm_in = NormSiLU(cin)
+        norm = dict(norm_impl=norm_impl, bf16_norm=bf16_norm,
+                    pallas_norm=pallas_norm)
+        self.norm_in = NormSiLU(cin, **norm)
         self.conv_in = Conv(cin, cout, 3, dtype)
         self.emb_proj = Dense(time_dim, cout, dtype)
-        self.norm_out = NormSiLU(cout)
+        self.norm_out = NormSiLU(cout, **norm)
         self.conv_out = Conv(cout, cout, 3, dtype, zero=True)
         self.skip = (Conv(cin, cout, 3 if use_conv_skip else 1, dtype)
                      if cin != cout else None)
@@ -195,10 +313,11 @@ class AttentionBlock(nn.Module):
     """Spatial self-attention over the H*W positions: q and k each scaled by
     1/sqrt(sqrt(ch)), softmax in fp32, as plain matmuls."""
 
-    def __init__(self, channels: int, heads: int, dtype: torch.dtype):
+    def __init__(self, channels: int, heads: int, dtype: torch.dtype,
+                 norm_impl: str = "kernel", bf16_norm: bool = False):
         super().__init__()
         self.heads = heads
-        self.norm = GroupNorm32(channels)
+        self.norm = GroupNorm32(channels, norm_impl, bf16_norm)
         self.qkv = Dense(channels, 3 * channels, dtype)
         self.proj = Dense(channels, channels, dtype, zero=True)
 
@@ -244,7 +363,8 @@ class UNet(nn.Module):
                  dropout: float = 0.0, attention_resolutions: str = "32,16,8",
                  n_heads: int = 1, n_head_channels: int = -1,
                  space_to_depth: int = 1, dtype: torch.dtype = torch.float32,
-                 biggan_updown: bool = True):
+                 biggan_updown: bool = True, norm_impl: str = "kernel",
+                 bf16_norm: bool = False, pallas_norm: bool = False):
         super().__init__()
         self.in_channels = in_channels
         self.s2d = space_to_depth
@@ -280,9 +400,11 @@ class UNet(nn.Module):
             self.add_module(name, module)
             plan.append(name)
 
+        norm = dict(norm_impl=norm_impl, bf16_norm=bf16_norm)
         res = lambda cin, cout, **kw: ResBlock(cin, cout, time_dim, dtype,
-                                               dropout, **kw)
-        attn = lambda c: AttentionBlock(c, heads_for(c), dtype)
+                                               dropout, pallas_norm=pallas_norm,
+                                               **norm, **kw)
+        attn = lambda c: AttentionBlock(c, heads_for(c), dtype, **norm)
         ch, ds, skips = base_channels, 1, [base_channels]
         for i, mult in enumerate(mults):
             out_ch = int(base_channels * mult)
@@ -317,7 +439,7 @@ class UNet(nn.Module):
                         else UpConv(ch, ch, 3, dtype))
                     ds //= 2
         assert not skips
-        self.out_norm = NormSiLU(ch)
+        self.out_norm = NormSiLU(ch, pallas_norm=pallas_norm, **norm)
         self.out_conv = Conv(ch, in_channels * space_to_depth ** 2, 3,
                              torch.float32, zero=True)
         self._plan = plan
@@ -358,7 +480,10 @@ def _mults_from_args(mults) -> Tuple[int, ...]:
 
 
 def unet_from_args(args, in_channels: int, dtype: torch.dtype = None) -> UNet:
-    """Build the UNet from an args{N}.json config."""
+    """Build the UNet from an args{N}.json config: the JAX package's keys,
+    `bf16_norm` and `pallas_norm` among them, and the port's `norm_impl`
+    ("kernel" unless the config says "flax"), which decides whether those
+    two change anything."""
     if dtype is None:
         dtype = _DTYPES[str(args.get("compute_dtype", "bfloat16") or "bfloat16")]
     img_size = args["img_size"]
@@ -374,4 +499,7 @@ def unet_from_args(args, in_channels: int, dtype: torch.dtype = None) -> UNet:
         n_head_channels=int(args.get("num_head_channels", -1) or -1),
         space_to_depth=int(args.get("space_to_depth", 1) or 1),
         dtype=dtype,
+        norm_impl=str(args.get("norm_impl") or "kernel"),
+        bf16_norm=bool(args.get("bf16_norm")),
+        pallas_norm=bool(args.get("pallas_norm")),
     )

@@ -5,9 +5,11 @@ Counterpart of `anoddpm_tpu/ops/pallas_norm.py`: fp32 statistics
 silu(x * rstd * gamma + (beta - mean * rstd * gamma)) in x's dtype.
 
 For NCHW-contiguous x on the card, `group_norm_silu` launches the CUDA
-kernel `csrc/group_norm_silu.cu` once, at every shape (the TPU kernel's
-VMEM eligibility gate has no counterpart here), with the layout that `plan`
-picks.  For x on the CPU it computes the plain PyTorch version below.
+kernel `csrc/group_norm_silu.cu` once, at every shape, with the layout that
+`plan` picks.  For x on the CPU it computes the plain PyTorch version below.
+The TPU kernel's VMEM gate, `eligible`, does not limit the kernel: the UNet
+reads it only where it follows the JAX package's `pallas_norm` choice
+(`models.unet`, `norm_impl="flax"`).
 
 Under autograd (grad enabled and x, gamma or beta requiring grad) the call
 goes through `GroupNormSiLU`, the counterpart of the JAX custom_vjp: its
@@ -39,6 +41,22 @@ SLICE_BYTES = 64 * 1024
 STAGE_MAX_BYTES = 96 * 1024
 MAX_CLUSTER = 16
 MAX_THREADS = 256
+# The JAX package's gate for its Pallas kernel (`anoddpm_tpu/ops/
+# pallas_norm.py:50-60`): whole groups, full 128-lane rows, and one sample
+# of at most 2 MiB in VMEM.
+VMEM_SAMPLE_BYTES = 2 * 1024 * 1024
+
+
+def eligible(shape, dtype: torch.dtype) -> bool:
+    """True where the JAX package sends an NHWC (B, H, W, C) activation of
+    `dtype` through its Pallas kernel (`pallas_norm.eligible`); the NCHW x
+    of the port passes (n, h, w, c)."""
+    if len(shape) != 4:
+        return False
+    _, h, w, c = shape
+    if c % GROUPS or c % 128:
+        return False
+    return h * w * c * dtype.itemsize <= VMEM_SAMPLE_BYTES
 
 
 class Plan(NamedTuple):

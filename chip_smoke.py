@@ -104,7 +104,18 @@ PyTorch built for CUDA.  Phases, each of which fails the run when it fails:
    `train_longer` one epoch further (RESUME_FINAL) and its three
    protocols, `dense_sweep` at every 250th lambda on that model (its
    train gate skips), each call with exact launches; a rerun of all of
-   them calls and launches nothing.
+   them calls and launches nothing;
+17. the measuring entry points: `anoddpm_torch.bench` at quick sizes
+   (the headline DDIM-15 on the s2d64 UNet and the paper DDPM chain at
+   lambda 50, batch 4; three train steps of the paper config through
+   `bench.train_probe`), the UNet's FLOP count on the card against the
+   meta device's, `norm_impl="flax"` at args256syn128's and s2d64's
+   widths forward and backward (no K2 without `pallas_norm`, K2 and K2b
+   exactly at the sites that pass the Pallas gate with it), the
+   flax-order site on the card against the CPU at every (C, H, W, dtype)
+   of both models' sites, ms per forward and per train step of the three
+   norm paths at s2d64, and `campaigns.substep_probe` cut to 1 epoch (and
+   epoch 0) of 8 iterations at 4 and 8 substeps, each with exact launches.
 
 From phase 13 on, every (shape, dtype) that K2 and K2b launch at is
 recorded, and after each phase K2 and K2b are held against their plain
@@ -399,15 +410,16 @@ def check_k1():
                 bound_by="operations", library_ms=None)
 
 
-def k2_sites(model, batch=BATCH):
-    """(shape, dtype) of every K2 call in one forward of `model` at `batch`:
-    one per NormSiLU module (85 for args256syn128 and args28)."""
+def k2_sites(model, batch=BATCH, img=256):
+    """(shape, dtype) of every K2 call in one forward of `model` at `batch`
+    on img^2 input: one per NormSiLU module (85 for args256syn128 and
+    args28)."""
     from anoddpm_torch.models.unet import NormSiLU
     seen = []
     hooks = [m.register_forward_pre_hook(
         lambda mod, inp: seen.append((tuple(inp[0].shape), inp[0].dtype)))
         for m in model.modules() if isinstance(m, NormSiLU)]
-    x = torch.zeros((batch, 1, 256, 256), device=DEVICE)
+    x = torch.zeros((batch, 1, img, img), device=DEVICE)
     with torch.inference_mode():
         model(x, torch.zeros((batch,), dtype=torch.int64, device=DEVICE))
     for h in hooks:
@@ -2567,6 +2579,275 @@ def s2d64_path(card):
     return runs[0][2]
 
 
+# Phase 17, the measuring entry points (anoddpm_torch.bench and the
+# campaigns chain_flops, mfu_push, bf16_norm_ab, substep_probe) at quick
+# sizes, and the JAX package's norm composition (`norm_impl="flax"`).
+MEASURE_IMG = 256            # the image size of every model of the phase
+MEASURE_REPEATS = 2          # timed chains per bench cell, after a warm-up
+MEASURE_BATCH = 4            # the bench's quick batch (BENCH_QUICK)
+MEASURE_LAMBDA = 50          # the bench's quick lambda
+MEASURE_TIMING_REPS = 5      # timed forwards / train steps per norm path
+NORM_PATHS = {"kernel": dict(norm_impl="kernel"),
+              "flax_fp32": dict(norm_impl="flax", bf16_norm=False),
+              "flax_bf16": dict(norm_impl="flax", bf16_norm=True)}
+# A flax-order site on the card against the same site on the CPU (plain
+# PyTorch on both, reductions in another order).  The GroupNorm output h
+# rounds once, as K2's does: K2's rule (fp32 and bf16).  The SiLU is then
+# held on the same input: the card's output against the CPU's SiLU of the
+# card's h, in bf16 within 2 ulps of max(|h|, |out|) (1e-4 floor): one of
+# its per-op roundings (exp, 1 + exp, the reciprocal) going the other way
+# moves the output by at most that, by enumeration over every bf16 h; in
+# fp32 K2's rule.  dx: bit-equal in >= 99% of elements, and within 4 bf16
+# ulps of its largest magnitude (bf16: an element whose h or SiLU
+# intermediate sits an ulp apart carries up to 3 ulps into its gradient),
+# 1e-4 of it (fp32); dgamma, dbeta, sums of per-element gradients that the
+# bf16 SiLU backward rounds op by op: one bf16 ulp of their largest
+# magnitude (bf16), K2b's 1e-4 (fp32).
+FLAX_SITE_DX_TOL = {torch.float32: K2B_TOL, torch.bfloat16: 2 ** -5}
+FLAX_SITE_DX_EQUAL = 0.99
+FLAX_SITE_PARAM_TOL = {torch.float32: K2B_TOL, torch.bfloat16: 2 ** -7}
+# The substep probe's cut: 1 epoch (+ epoch 0) of 8 iterations and a
+# schedule of 100 steps (the epoch-0 VLB sweep's length), args256syn128's
+# widths otherwise.
+SUBSTEP_SETTINGS = (4, 8)
+SUBSTEP_CUTS = {"T": 100}
+
+
+def counted_launches(what, fn, want, total):
+    """fn() with the (K1, K2, K2b) it launches required to equal `want`,
+    added to `total`; returns fn()'s result."""
+    torch.cuda.synchronize()
+    before = torch_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    got = [a - b for a, b in zip(torch_launches(), before)]
+    require(got == list(want), f"{what}: launches {got} != {list(want)}")
+    total[:] = [a + b for a, b in zip(total, got)]
+    return out
+
+
+def site_count(**unet_kwargs):
+    """norm+SiLU sites of a UNet (built on the meta device)."""
+    from anoddpm_torch.models.unet import NormSiLU, UNet
+    with torch.device("meta"):
+        model = UNet(**unet_kwargs)
+    return sum(isinstance(m, NormSiLU) for m in model.modules())
+
+
+def flax_pass(model, batch, grad):
+    """One forward of `model` on seeded input at `batch`, under `grad`
+    with a backward against a seeded output gradient."""
+    gen = torch.Generator(device=DEVICE).manual_seed(21)
+    x = torch.randn((batch, 1, MEASURE_IMG, MEASURE_IMG), generator=gen,
+                    device=DEVICE)
+    t = torch.randint(0, 1000, (batch,), generator=gen, device=DEVICE)
+    if grad:
+        out = model(x, t)
+        out.backward(torch.randn(out.shape, generator=gen, device=DEVICE))
+        model.zero_grad(set_to_none=True)
+    else:
+        with torch.inference_mode():
+            out = model(x, t)
+    require(bool(torch.isfinite(out).all()), "flax path: non-finite output")
+
+
+def flax_site_case(shape, dtype, bf16_path, gen):
+    """`unet.flax_norm` at one site on the card against the CPU: (output
+    max|d|, dx max|d| / max|dx|, share of dx bit-equal)."""
+    from anoddpm_torch.models.unet import _JaxSiLU, flax_norm
+    c = shape[1]
+    x = (torch.randn(shape, generator=gen, device=DEVICE) * 1.7 + 0.4).to(dtype)
+    gamma = 1 + 0.1 * torch.randn(c, generator=gen, device=DEVICE)
+    beta = 0.1 * torch.randn(c, generator=gen, device=DEVICE)
+    go = torch.randn(shape, generator=gen, device=DEVICE).to(dtype)
+    res = {}
+    for dev in (DEVICE, "cpu"):
+        xs, gs, bs = (t.detach().to(dev).requires_grad_() for t in (x, gamma, beta))
+        with torch.no_grad():
+            norm = flax_norm(xs, gs, bs, bf16_path, False)
+        out = flax_norm(xs, gs, bs, bf16_path, True)
+        out.backward(go.to(dev))
+        res[dev] = [v.detach().float().cpu() for v in (norm, out, xs.grad,
+                                                       gs.grad, bs.grad)]
+    (norm, out, dx, dg, db), (wnorm, wout, wdx, wdg, wdb) = res[DEVICE], res["cpu"]
+    # the SiLU of the card's own norm output, on the CPU
+    with torch.no_grad():
+        silu = _JaxSiLU.apply(norm.to(dtype)).float()
+    for what, got, want, ref in (("norm", norm, wnorm, wnorm),
+                                 ("SiLU", out, silu, torch.maximum(
+                                     norm.abs(), silu.abs()))):
+        diff = (got - want).abs()
+        if dtype == torch.float32:
+            ok = (diff <= K2_TOL + K2_TOL * want.abs()).all().item()
+        else:
+            ulps = 1 if what == "norm" else 2
+            ok = (diff <= torch.clamp(ulps * bf16_ulp(ref), min=K2_TOL)).all().item()
+        require(ok, f"flax site {shape} {dtype} bf16_path={bf16_path}: {what} "
+                f"max|d| {diff.max().item():.3e} out of tolerance")
+    dx_err = ((dx - wdx).abs().max() / wdx.abs().max()).item()
+    same = (dx == wdx).float().mean().item()
+    require(dx_err <= FLAX_SITE_DX_TOL[dtype] and (
+        dtype == torch.float32 or same >= FLAX_SITE_DX_EQUAL),
+            f"flax site {shape} {dtype} bf16_path={bf16_path}: dx {dx_err:.3e}, "
+            f"bit-equal {same:.4f}")
+    for name, got, want in (("dgamma", dg, wdg), ("dbeta", db, wdb)):
+        err = ((got - want).abs().max() / want.abs().max()).item()
+        require(err <= FLAX_SITE_PARAM_TOL[dtype],
+                f"flax site {shape} {dtype}: {name} {err:.3e}")
+    return (out - wout).abs().max().item(), dx_err, same
+
+
+def norm_path_times(args, card):
+    """ms per forward (batch 4, inference) and per train step (batch 8:
+    simplex noise, AdamW, EMA) of `args`' UNet under each norm path."""
+    from anoddpm_torch import training
+    from anoddpm_torch.ops.noise import sampler_from_args
+    from anoddpm_torch.schedule import schedule_from_args
+    sched = schedule_from_args(args).to(DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(23)
+    size = (1, MEASURE_IMG, MEASURE_IMG)
+    x4 = torch.randn((BATCH,) + size, generator=gen, device=DEVICE)
+    t4 = torch.full((BATCH,), 100, dtype=torch.int64, device=DEVICE)
+    x8 = torch.rand((TRAIN_BATCH,) + size, generator=gen, device=DEVICE) * 2 - 1
+    times = {}
+    for tag, norm in NORM_PATHS.items():
+        model = seeded_model({**args, **norm})
+        with torch.inference_mode():
+            fwd = cuda_ms(lambda: model(x4, t4), MEASURE_TIMING_REPS)
+        state = training.init_train_state(model.train(False), training.make_optimizer(
+            model.parameters(), 1e-4))
+        step = training.make_train_step(sched, sampler_from_args(args), max_t=800)
+        train_ms = cuda_ms(lambda: step(state, x8, gen), MEASURE_TIMING_REPS)
+        times[tag] = (fwd, train_ms)
+        del model, state
+        torch.cuda.empty_cache()
+    log(f"norm paths at args{S2D64_CONFIG} ({card}): " + "; ".join(
+        f"{tag} {f:.3f} ms per forward (batch {BATCH}), {t:.3f} ms per train "
+        f"step (batch {TRAIN_BATCH})" for tag, (f, t) in times.items()))
+    return times
+
+
+def measuring_path(card):
+    """The measuring entry points at quick sizes on the card, with exact
+    launches counted from the models: bench.py's headline (DDIM-15 on the
+    s2d64 UNet) and paper DDPM chain at lambda 50, three train steps of the
+    paper config through `bench.train_probe` (its FLOP count's step, the
+    warm-up and one timed step), the FLOP count on the card against the
+    meta device's; `norm_impl="flax"` at args256syn128's and s2d64's widths
+    forward and backward (no K2 without pallas_norm, K2 and K2b exactly at
+    the eligible sites with it), the flax-order site on the card against
+    the CPU at every (C, H, W, dtype) of both models' sites, ms per forward
+    and train step of the three norm paths; and the substep probe cut to 1
+    epoch of 8 iterations.  Returns the (K1, K2, K2b) launches."""
+    from anoddpm_torch import bench
+    from anoddpm_torch.campaigns import substep_probe
+    from anoddpm_torch.config import load_args
+    from anoddpm_torch.ops import group_norm_silu as gn
+    from anoddpm_torch.ops.group_norm_silu import BACKWARD_LAUNCHES
+    t_phase = time.time()
+    total = [0, 0, 0]
+    img = MEASURE_IMG
+    k = site_count(img_size=img, base_channels=64, space_to_depth=2,
+                   attention_resolutions="16,8", n_heads=2)
+    k_paper = site_count(img_size=img, base_channels=128,
+                         attention_resolutions="16,8", n_heads=2)
+    chains = 1 + MEASURE_REPEATS
+    sps, spread = counted_launches(
+        "bench headline", lambda: bench.run_bench(
+            MEASURE_BATCH, t_distance=MEASURE_LAMBDA, img=img,
+            base_channels=64, space_to_depth=2, ddim_steps=15, ddim_eta=1.0,
+            repeats=MEASURE_REPEATS, device=DEVICE),
+        (16 * chains, 15 * k * chains, 0), total)
+    paper_sps, _ = counted_launches(
+        "bench paper DDPM", lambda: bench.run_bench(
+            MEASURE_BATCH, t_distance=MEASURE_LAMBDA, img=img,
+            base_channels=128, repeats=MEASURE_REPEATS, device=DEVICE),
+        ((MEASURE_LAMBDA + 1) * chains, k_paper * MEASURE_LAMBDA * chains, 0),
+        total)
+    probe = counted_launches(
+        "bench train", lambda: bench.train_probe(
+            TRAIN_BATCH, img, 128, substeps=1, repeats=1, device=DEVICE),
+        (3, 3 * k_paper, 3 * k_paper * BACKWARD_LAUNCHES), total)
+    log(f"bench at quick sizes ({card}): headline DDIM-15 at lambda "
+        f"{MEASURE_LAMBDA}, batch {MEASURE_BATCH}: {sps:.3f} slices/s (IQR "
+        f"{spread['sps_iqr'][0]:.3f}-{spread['sps_iqr'][1]:.3f}), {k} K2 "
+        f"sites; paper DDPM-{MEASURE_LAMBDA}: {paper_sps:.3f} slices/s; train "
+        f"step at batch {TRAIN_BATCH}: {probe['ms_per_step']:.3f} ms, "
+        f"{probe['tflop_per_step']:.4f} TFLOP, MFU {probe['mfu']:.4f} of "
+        f"{bench.PEAK_TFLOPS_BF16} TFLOPS (one timed step)")
+    flops = counted_launches(
+        "FLOP count", lambda: bench.unet_fwd_flops(2, 64, 2, img, device=DEVICE),
+        (0, k, 0), total)
+    want_flops = bench.unet_fwd_flops(2, 64, 2, img, norm=dict(norm_impl="flax"),
+                                      device="meta")
+    require(flops == want_flops, f"FLOPs on the card {flops} != {want_flops}")
+    log(f"UNet forward FLOPs, headline at batch 2: {flops / 1e9:.3f} GFLOP on "
+        f"the card (kernel path), equal to the meta device's count")
+    # the JAX package's composition, forward and backward, at both widths;
+    # with pallas_norm, K2 exactly at the sites whose NHWC shape passes the
+    # TPU kernel's gate
+    sites_of = {}
+    for config in (CONFIG, S2D64_CONFIG):
+        args = load_args(config, config_dir=os.path.join(ROOT, "configs"))
+        sites_of[config] = k2_sites(seeded_model(args), 1, img)
+        eligible = sum(gn.eligible((n, h, w, c), dtype)
+                       for (n, c, h, w), dtype in sites_of[config])
+        require(eligible > 0, f"args{config}: no site passes the gate")
+        for pallas in (False, True):
+            model = seeded_model({**args, "norm_impl": "flax",
+                                  "bf16_norm": True, "pallas_norm": pallas})
+            e = eligible if pallas else 0
+            for batch, grad in ((BATCH, False), (TRAIN_BATCH, True)):
+                counted_launches(
+                    f"flax args{config} pallas_norm={pallas} batch {batch}",
+                    lambda: flax_pass(model, batch, grad),
+                    (0, e, e * BACKWARD_LAUNCHES * grad), total)
+            del model
+            torch.cuda.empty_cache()
+        log(f"flax path, args{config}, bf16_norm: forward at batch {BATCH}, "
+            f"forward and backward at {TRAIN_BATCH}: no K2 without "
+            f"pallas_norm; with it K2 (and K2b) at {eligible} of "
+            f"{len(sites_of[config])} sites, the composition at the rest")
+    gen = torch.Generator(device=DEVICE).manual_seed(22)
+    worst = [0.0, 0.0, 1.0]
+    shapes = sorted({s for sites in sites_of.values() for s in sites}, key=str)
+    for shape, dtype in shapes:
+        for bf16_path in ((False, True) if dtype == torch.bfloat16 else (False,)):
+            out_err, dx_err, same = flax_site_case(shape, dtype, bf16_path, gen)
+            worst = [max(worst[0], out_err), max(worst[1], dx_err),
+                     min(worst[2], same)]
+    log(f"flax-order sites on the card vs the CPU at {len(shapes)} (shape, "
+        f"dtype) of both models at N = 1: output max|d| {worst[0]:.3e}, dx "
+        f"max|d| {worst[1]:.3e} of its largest magnitude, dx bit-equal in "
+        f">= {worst[2]:.4f} of elements")
+    s2d_args = load_args(S2D64_CONFIG, config_dir=os.path.join(ROOT, "configs"))
+    norm_path_times(s2d_args, card)
+    # the substep probe, cut
+    args = load_args(CONFIG, config_dir=os.path.join(ROOT, "configs"))
+    t_cut = SUBSTEP_CUTS["T"]
+    steps = 2 * 8                      # epochs 0 and 1, 8 iterations each
+    per_run = (steps, k_paper * (steps + t_cut),
+               k_paper * BACKWARD_LAUNCHES * steps)
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build"),
+                                     prefix="substeps-") as root:
+        os.makedirs(os.path.join(root, "configs"))
+        with open(os.path.join(root, "configs", f"args{CONFIG}.json"), "w") as f:
+            json.dump({**args, **SUBSTEP_CUTS}, f)
+        rows = counted_launches(
+            "substep probe", lambda: substep_probe.run(
+                SUBSTEP_SETTINGS, root, DEVICE, epochs=1, reps=1,
+                iters_per_epoch=8),
+            [len(SUBSTEP_SETTINGS) * c for c in per_run], total)
+    log(f"substep probe (args{CONFIG}, T {t_cut}, 1 epoch + epoch 0 of 8 "
+        f"iterations, {card}): " + "; ".join(
+            f"{r['substeps']} substeps {r['sec_per_epoch']:.2f} s per epoch"
+            for r in rows))
+    log(f"measuring: the phase {time.time() - t_phase:.1f} s; launches "
+        f"K1 {total[0]}, K2 {total[1]}, K2b {total[2]}")
+    return tuple(total)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2671,6 +2952,9 @@ def main():
     counts["s2d64"] = s2d64_path(card)
     shapes_of("s2d64 campaigns")
     phase("s2d64 campaigns")
+    counts["measuring"] = measuring_path(card)
+    shapes_of("measuring")
+    phase("measuring")
     k2b_row["max_abs_err"] = max(k2b_row["max_abs_err"], k2b_worst,
                                  shape_worst[1])
     k1_row["max_abs_err"] = max(k1_row["max_abs_err"], k1_worst)

@@ -12,7 +12,6 @@ JSON summary as the last line.
 """
 import json
 import os
-import re
 import sys
 import time
 
@@ -24,27 +23,7 @@ import torch  # noqa: E402
 from torch.autograd import DeviceType  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
-KINDS = [  # first match wins
-    ("K1 simplex field", r"octave_field"),
-    ("K2b group_norm_silu backward", r"group_norm_silu_bwd"),
-    ("K2 group_norm_silu", r"group_norm_silu_kernel"),
-    ("conv backward (dgrad, wgrad)", r"dgrad|wgrad"),
-    ("conv forward", r"conv|fprop|implicit"),
-    ("layout transpose", r"nchwToNhwc|nhwcToNchw|nchw.*nhwc|nhwc.*nchw"),
-    ("matmul", r"gemm|cutlass|xmma"),
-    ("AdamW (fused)", r"fused_adam|FusedAdam|adam"),
-    ("foreach (clip, EMA, grad zeroing)", r"multi_tensor_apply|foreach"),
-    ("softmax", r"softmax"),
-    ("elementwise", r"elementwise|CatArrayBatched|index"),
-    ("reduction", r"reduce"),
-]
-
-
-def kind_of(name):
-    for kind, pattern in KINDS:
-        if re.search(pattern, name, re.IGNORECASE):
-            return kind
-    return "other"
+from anoddpm_torch.campaigns.trace_categories import kind_of  # noqa: E402
 
 
 def main():

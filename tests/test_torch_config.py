@@ -28,4 +28,4 @@ def test_shipped_configs_do_not_warn(path):
         warnings.simplefilter("error")
         assert validate_args(json.load(open(path)), source=path) == []
         load_args(pathlib.Path(path).stem, config_dir=str(ROOT / "configs"))
-    assert KNOWN_KEYS == JAX_KNOWN_KEYS
+    assert KNOWN_KEYS == JAX_KNOWN_KEYS | {"norm_impl"}

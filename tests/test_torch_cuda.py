@@ -471,3 +471,85 @@ def test_group_norm_silu_backward_s2d64_top(cuda, n, dtype):
     x, gamma, beta = _inputs((n,) + S2D64_TOP, dtype, cuda, seed=n + 1)
     grad_out = torch.randn(x.shape, device=cuda).to(dtype)
     _check_group_norm_silu_backward(x, grad_out, gamma, beta)
+
+
+# The JAX package's norm composition (`norm_impl="flax"`): plain PyTorch, the
+# same ops on the card as on the CPU, held to each other under chip_smoke's
+# rules (`FLAX_SITE_*` there): the GroupNorm output h rounds once (K2's
+# rule); the SiLU on the card's own h against the CPU's, in bf16 within 2
+# ulps of max(|h|, |out|) (one per-op rounding going the other way moves it
+# by at most that); dx bit-equal in >= 99% and within 4 bf16 ulps of its
+# largest magnitude (fp32 1e-4); dgamma, dbeta within one bf16 ulp of their
+# largest magnitude (fp32 1e-4).
+def _flax_site(x, gamma, beta, grad_out, bf16_path):
+    from anoddpm_torch.models.unet import flax_norm
+    x, gamma, beta = (t.detach().requires_grad_() for t in (x, gamma, beta))
+    with torch.no_grad():
+        norm = flax_norm(x, gamma, beta, bf16_path, False)
+    out = flax_norm(x, gamma, beta, bf16_path, True)
+    out.backward(grad_out)
+    return [t.detach().float().cpu() for t in (norm, out, x.grad, gamma.grad,
+                                               beta.grad)]
+
+
+def _bf16_ulp(v):
+    return torch.exp2(torch.floor(torch.log2(v.abs().clamp_min(1e-30))) - 7)
+
+
+@pytest.mark.parametrize("bf16_path", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 64, 16, 16), (1, 192, 8, 8),
+                                   (4,) + S2D64_TOP])
+def test_flax_site_on_card_matches_cpu(cuda, shape, dtype, bf16_path):
+    from anoddpm_torch.models.unet import _JaxSiLU
+    x, gamma, beta = _inputs(shape, dtype, cuda, seed=7)
+    grad_out = torch.randn(shape, device=cuda).to(dtype)
+    got = _flax_site(x, gamma, beta, grad_out, bf16_path)
+    want = _flax_site(x.cpu(), gamma.cpu(), beta.cpu(), grad_out.cpu(), bf16_path)
+    with torch.no_grad():
+        silu = _JaxSiLU.apply(got[0].to(dtype)).float()
+    bf16 = dtype == torch.bfloat16
+    for g, w, ref, ulps in ((got[0], want[0], want[0], 1),
+                            (got[1], silu, torch.maximum(got[0].abs(), silu.abs()), 2)):
+        diff = (g - w).abs()
+        if bf16:
+            assert (diff <= torch.clamp(ulps * _bf16_ulp(ref), min=1e-4)).all()
+        else:
+            assert (diff <= 1e-4 + 1e-4 * w.abs()).all()
+    assert ((got[2] - want[2]).abs().max()
+            <= (2 ** -5 if bf16 else 1e-4) * want[2].abs().max())
+    assert not bf16 or (got[2] == want[2]).float().mean() >= 0.99
+    for i in (3, 4):
+        assert ((got[i] - want[i]).abs().max()
+                <= (2 ** -7 if bf16 else 1e-4) * want[i].abs().max())
+
+
+@pytest.mark.parametrize("pallas_norm", [False, True])
+def test_flax_unet_takes_k2_at_eligible_sites(cuda, pallas_norm):
+    """norm_impl="flax" on the card: no K2 without pallas_norm; with it one
+    K2 per site whose NHWC shape passes the Pallas gate, and K2b there
+    under autograd."""
+    from anoddpm_torch.models.unet import NormSiLU, UNet
+    torch.manual_seed(0)
+    model = UNet(img_size=32, base_channels=64, channel_mults=(1, 2),
+                 attention_resolutions="16", dtype=torch.bfloat16,
+                 norm_impl="flax", bf16_norm=True, pallas_norm=pallas_norm)
+    shapes = []
+    for m in model.modules():
+        if isinstance(m, NormSiLU):
+            m.register_forward_pre_hook(
+                lambda mod, inp: shapes.append((inp[0].shape, inp[0].dtype)))
+    x = torch.randn((2, 1, 32, 32))
+    t = torch.tensor([3, 17])
+    model.to(cuda)
+    k2, k2b = gn.group_norm_silu.launches, gn.group_norm_silu_backward.launches
+    out = model(x.to(cuda), t.to(cuda))
+    out.sum().backward()
+    torch.cuda.synchronize()
+    eligible = sum(gn.eligible((n, h, w, c), dtype)
+                   for (n, c, h, w), dtype in shapes) if pallas_norm else 0
+    assert eligible > 0 or not pallas_norm
+    assert gn.group_norm_silu.launches - k2 == eligible
+    assert (gn.group_norm_silu_backward.launches - k2b
+            == eligible * gn.BACKWARD_LAUNCHES)
+    assert torch.isfinite(out).all()

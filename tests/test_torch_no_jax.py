@@ -39,7 +39,12 @@ def test_import_loads_no_jax():
             "anoddpm_torch.campaigns.diffuse_calibration, "
             "anoddpm_torch.campaigns.train_longer, "
             "anoddpm_torch.campaigns.dense_sweep, "
-            "anoddpm_torch.campaigns.f3_s2d64; "
+            "anoddpm_torch.campaigns.f3_s2d64, anoddpm_torch.bench, "
+            "anoddpm_torch.campaigns.chain_flops, "
+            "anoddpm_torch.campaigns.mfu_push, "
+            "anoddpm_torch.campaigns.bf16_norm_ab, "
+            "anoddpm_torch.campaigns.substep_probe, "
+            "anoddpm_torch.campaigns.trace_categories; "
             "bad = [m for m in ('jax', 'flax', 'optax', 'anoddpm_tpu', "
             "'pandas', 'matplotlib', 'imageio', 'cv2', 'PIL', 'nibabel') "
             "if m in sys.modules]; print(bad); sys.exit(1 if bad else 0)")
@@ -60,7 +65,11 @@ def test_import_loads_no_jax():
     "anoddpm_torch.campaigns.model_size_quality",
     "anoddpm_torch.campaigns.diffuse_calibration",
     "anoddpm_torch.campaigns.train_longer", "anoddpm_torch.campaigns.dense_sweep",
-    "anoddpm_torch.campaigns.f3_s2d64"])
+    "anoddpm_torch.campaigns.f3_s2d64", "anoddpm_torch.bench",
+    "anoddpm_torch.campaigns.chain_flops", "anoddpm_torch.campaigns.mfu_push",
+    "anoddpm_torch.campaigns.bf16_norm_ab",
+    "anoddpm_torch.campaigns.substep_probe",
+    "anoddpm_torch.campaigns.trace_categories"])
 def test_new_modules_load_no_jax_or_writers(module):
     """Each module alone loads no jax, flax, optax, matplotlib or imageio."""
     code = (f"import sys, {module}; "
