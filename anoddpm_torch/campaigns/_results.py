@@ -16,6 +16,7 @@ DIFFUSE_CALIBRATION = "results/torch_diffuse_calibration.json"
 TRAIN_LONGER = "results/torch_train_longer.json"
 DENSE_SWEEP = "results/torch_dense_sweep_full.json"
 F3_S2D64 = "results/torch_f3_s2d64.json"
+F3_TWO_SAMPLE = "results/torch_f3_two_sample.json"
 
 
 def load_results(root_dir: str, name: str) -> Dict[str, Any]:

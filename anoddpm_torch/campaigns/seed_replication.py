@@ -18,7 +18,7 @@ import argparse
 import copy
 import os
 import sys
-from typing import List, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 
@@ -100,20 +100,31 @@ def ensure_trained(config: str, seed: int, root_dir: str = ".",
     return token
 
 
+def kept_cells(config: str, skip: Sequence[str] = ()) -> List[str]:
+    """The cells of `config` whose names hold no substring of `skip`."""
+    return [cell for cell in MODELS[config]
+            if not any(s in cell for s in skip)]
+
+
 def work_list(res, seeds: Sequence[int],
               skip: Sequence[str] = ()) -> List[Tuple[int, str, str, int]]:
     """(cost, config, cell, seed) of every entry not yet in `res`, cheapest
     first; a cell whose name holds a substring of `skip` is left out."""
     work = []
-    for config, cells in MODELS.items():
-        for cell in cells:
-            if any(s in cell for s in skip):
-                continue
+    for config in MODELS:
+        for cell in kept_cells(config, skip):
             for seed in seeds:
                 if f"{cell}/seed{seed}" not in res:
                     cost = PROTOCOLS[cell].get("ddim_steps", 200)
                     work.append((cost, config, cell, seed))
     return sorted(work)
+
+
+def seed_entries(res, cell: str) -> Dict[int, Dict[str, float]]:
+    """{n: entry} of every {cell}/seed{n} entry in `res`."""
+    prefix = f"{cell}/seed"
+    return {int(k[len(prefix):]): v for k, v in res.items()
+            if k.startswith(prefix) and k[len(prefix):].isdigit()}
 
 
 def aggregate(res, seeds=None, cells=None) -> None:
@@ -124,10 +135,9 @@ def aggregate(res, seeds=None, cells=None) -> None:
     del seeds
     for cells in ([cells] if cells is not None else MODELS.values()):
         for cell in cells:
-            prefix = f"{cell}/seed"
-            keys = sorted(k for k in res if k.startswith(prefix)
-                          and k[len(prefix):].isdigit())
-            vals = {m: [res[k][m] for k in keys] for m in METRICS}
+            entries = seed_entries(res, cell)
+            vals = {m: [entries[s][m] for s in sorted(entries)]
+                    for m in METRICS}
             if not vals["auc"]:
                 continue
             res[f"{cell}/aggregate"] = {
@@ -144,13 +154,15 @@ def aggregate(res, seeds=None, cells=None) -> None:
 
 def run(seeds: Sequence[int] = (0, 1, 2, 3, 4), skip: Sequence[str] = (),
         root_dir: str = ".", device: DeviceLike = None):
-    """Train every (config, seed) of MODELS, evaluate every missing entry,
-    aggregate; returns the results dict."""
+    """Train every (config, seed) of MODELS that has a cell left after
+    `skip`, evaluate every missing entry, aggregate; returns the results
+    dict."""
     device = resolve_device(device)
     res = load_results(root_dir, SEED_REPLICATION)
     # training first: the expensive assets exist even if evaluation stops
     tokens = {(config, seed): ensure_trained(config, seed, root_dir, device)
-              for config in MODELS for seed in seeds}
+              for config in MODELS if kept_cells(config, skip)
+              for seed in seeds}
     for _, config, cell, seed in work_list(res, seeds, skip):
         key = f"{cell}/seed{seed}"
         eval_args, em, sched = _load_eval_model(root_dir, tokens[(config, seed)],

@@ -2279,10 +2279,13 @@ def native_path():
 
 
 # The quality campaign at a cut depth: args256syn128 at full width with only
-# EPOCHS, iters_per_epoch and the anomalous volumes cut, the test-set suite
-# at CAMPAIGN_TEST_IMAGES images and the figures off.
+# EPOCHS, iters_per_epoch, the anomalous volumes and the schedule's length T
+# (1,000 -> 400: the VLB sweep and the test-set suite run T and 1.5 T
+# forwards; lambda = 200 still fits) cut, the test-set suite at
+# CAMPAIGN_TEST_IMAGES images and the figures off.
 CAMPAIGN_TOKEN = "campaign"
-CAMPAIGN_CUTS = {"EPOCHS": 2, "iters_per_epoch": 4, "anomalous_volumes": 1}
+CAMPAIGN_CUTS = {"EPOCHS": 2, "iters_per_epoch": 4, "anomalous_volumes": 1,
+                 "T": 400}
 CAMPAIGN_TEST_IMAGES = 4
 
 
@@ -2401,15 +2404,21 @@ def campaign_path(k2_per_forward, card):
 # The s2d64 campaigns at a cut depth: args256syn64s2d at full width (256^2
 # images through a space-to-depth of 2 into a 128^2 UNet of base 64, bf16,
 # batch 8; 2 channels per GroupNorm group at the top level) with only
-# EPOCHS, iters_per_epoch and the anomalous volumes cut and the test-set
-# suite off; the diffuse calibration at 2 severities, the dense sweep at
-# every S2D64_LAMBDA_STEP-th lambda (one chunk).
+# EPOCHS, iters_per_epoch, the anomalous volumes and T (1,000 -> 400: the
+# VLB sweeps and the dense sweep's lambdas) cut and the test-set suite off;
+# the diffuse calibration at 2 severities, the dense sweep at every
+# S2D64_LAMBDA_STEP-th lambda (one chunk).
 S2D64_CONFIG = "256syn64s2d"
 S2D64_SEED = 1
 S2D64_CUTS = {"EPOCHS": 2, "iters_per_epoch": 8, "anomalous_volumes": 1,
-              "skip_test_eval": True}
+              "skip_test_eval": True, "T": 400}
 S2D64_SEVERITIES = (1.0, 2.0)
 S2D64_LAMBDA_STEP = 250
+# the seeds route (`seed_replication.run S --skip=paper128`): one more seed
+# trained for one epoch of one dispatch, scored in the 9 s2d64 cells
+S2D64_SEEDS_SEED = 2
+S2D64_SEEDS_CUTS = {"EPOCHS": 0}
+S2D64_SEEDS_SKIP = ("paper128",)
 
 
 def s2d64_kernel_times(model):
@@ -2454,19 +2463,24 @@ def s2d64_path(card):
     `train_longer.run` (extended by one epoch through RESUME_FINAL and
     scored in its three protocols) and `dense_sweep.run` on that model
     (its train gate skips), each call with exact launches; then all of
-    them again, which call and launch nothing.  Returns the (K1, K2, K2b)
-    launches."""
+    them again, which call and launch nothing.  Then the seeds route under
+    another directory: `seed_replication.run` of one seed with the paper
+    cells skipped trains args256syn64s2d alone (one epoch) and scores the 9
+    s2d64 cells, each call with exact launches; a rerun calls and launches
+    nothing.  Returns the (K1, K2, K2b) launches."""
     import numpy as np
     from anoddpm_torch.campaigns import (_stages, dense_sweep,
                                          diffuse_calibration,
                                          seed_replication, train_longer)
     from anoddpm_torch.campaigns._results import (DENSE_SWEEP,
                                                   DIFFUSE_CALIBRATION,
+                                                  SEED_REPLICATION,
                                                   TRAIN_LONGER, load_results)
     from anoddpm_torch.config import load_args
     from anoddpm_torch.ops.group_norm_silu import BACKWARD_LAUNCHES
     t_phase = time.time()
     args = load_args(S2D64_CONFIG, config_dir=os.path.join(ROOT, "configs"))
+    args.update(S2D64_CUTS)
     model = seeded_model(args)
     k2 = s2d64_kernel_times(model)
     del model
@@ -2476,8 +2490,17 @@ def s2d64_path(card):
     per_epoch = seed_replication.SUBSTEPS * max(
         S2D64_CUTS["iters_per_epoch"] // seed_replication.SUBSTEPS, 1)
     calls = []
+
+    def cell_stage(p):
+        """The stage name of a seed-replication cell from its protocol."""
+        return (f"cell {p['sampler']}{p.get('ddim_steps', '')}"
+                f"x{int(p.get('recon_repeats') or 1)}"
+                + (" diffuse" if p.get("lesion_kind") == "diffuse" else ""))
+
     wrapped = {
         (seed_replication, "train"): lambda a, k: "train",
+        (seed_replication, "anomalous_metric_calculation"):
+            lambda a, k: cell_stage(k["args"]),
         (train_longer, "train"): lambda a, k: f"extend {k['resume']}",
         (_stages, "anomalous_metric_calculation"): lambda a, k:
             f"diffuse {k['args']['lesion_severity']:g}"
@@ -2506,7 +2529,7 @@ def s2d64_path(card):
             for name, seed in ((S2D64_CONFIG, args["seed"]), (token, S2D64_SEED)):
                 with open(os.path.join(root, "configs", f"args{name}.json"),
                           "w") as f:
-                    json.dump({**args, **S2D64_CUTS, "seed": seed}, f)
+                    json.dump({**args, "seed": seed}, f)
             runs = []
             for _ in range(2):
                 calls.clear()
@@ -2523,6 +2546,23 @@ def s2d64_path(card):
             with open(os.path.join(root, "metrics",
                                    f"args{token}-lambda.csv")) as f:
                 pooled = [line.split(",") for line in f.read().split()[1:]]
+        with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build"),
+                                         prefix="s2d64-seeds-") as root:
+            os.makedirs(os.path.join(root, "configs"))
+            with open(os.path.join(root, "configs",
+                                   f"args{S2D64_CONFIG}.json"), "w") as f:
+                json.dump({**args, **S2D64_SEEDS_CUTS}, f)
+            seeds_runs = []
+            for _ in range(2):
+                calls.clear()
+                reset_launches()
+                t0 = time.time()
+                seed_replication.run([S2D64_SEEDS_SEED], S2D64_SEEDS_SKIP,
+                                     root, DEVICE)
+                torch.cuda.synchronize()
+                seeds_runs.append((list(calls), time.time() - t0,
+                                   torch_launches()))
+            seeds_res = load_results(root, SEED_REPLICATION)
     finally:
         for (mod, name), fn in real.items():
             setattr(mod, name, fn)
@@ -2549,6 +2589,38 @@ def s2d64_path(card):
         f"{sweep_t}-forward VLB sweep of epoch 0")
     require(runs[1][0] == [] and runs[1][2] == (0, 0, 0),
             f"s2d64 rerun: calls {runs[1][0]}, launches {runs[1][2]}")
+
+    def cell_counts(p):
+        repeats, n = int(p.get("recon_repeats") or 1), int(p.get("ddim_steps", LAMBDA))
+        return (repeats * (n + 1), repeats * k2 * n, 0)
+
+    cells = seed_replication.kept_cells(S2D64_CONFIG, S2D64_SEEDS_SKIP)
+    order = [c for _, _, c, _ in seed_replication.work_list(
+        {}, [S2D64_SEEDS_SEED], S2D64_SEEDS_SKIP)]
+    require(len(cells) == 9 and sorted(order) == sorted(cells),
+            f"seeds route cells {order}")
+    seeds_steps = (S2D64_SEEDS_CUTS["EPOCHS"] + 1) * per_epoch
+    seeds_want = [("train", tuple(a + b for a, b in zip(
+        step_counts(seeds_steps), (0, k2 * sweep_t, 0))))]
+    seeds_want += [(cell_stage(seed_replication.PROTOCOLS[c]),
+                    cell_counts(seed_replication.PROTOCOLS[c])) for c in order]
+    got = [(stage, c) for stage, _, c in seeds_runs[0][0]]
+    for (stage, wall, c), (_, expected) in zip(seeds_runs[0][0], seeds_want):
+        log(f"s2d64 seeds stage {stage}: {wall:.1f} s, launches K1 {c[0]}, "
+            f"K2 {c[1]}, K2b {c[2]} (expected {expected})")
+    require(got == seeds_want, f"s2d64 seeds launches: {got} != {seeds_want}")
+    require(seeds_runs[1][0] == [] and seeds_runs[1][2] == (0, 0, 0),
+            f"s2d64 seeds rerun: calls {seeds_runs[1][0]}, launches "
+            f"{seeds_runs[1][2]}")
+    want_keys = {f"{c}/{k}" for c in cells
+                 for k in (f"seed{S2D64_SEEDS_SEED}", "aggregate")}
+    require(set(seeds_res) == want_keys,
+            f"seeds route results {sorted(set(seeds_res) ^ want_keys)}")
+    require(all(seeds_res[f"{c}/aggregate"][m]["n"] == 1 for c in cells
+                for m in seed_replication.METRICS), "seeds route aggregates")
+    require(all(np.isfinite(v) for c in cells
+                for v in seeds_res[f"{c}/seed{S2D64_SEEDS_SEED}"].values()),
+            "seeds route: non-finite results")
     diffuse = res[DIFFUSE_CALIBRATION]
     require(sorted(diffuse) == sorted(diffuse_calibration.key(s)
                                       for s in S2D64_SEVERITIES),
@@ -2571,12 +2643,16 @@ def s2d64_path(card):
               for v in e.values()] + [float(v) for r in pooled for v in r]
     require(all(np.isfinite(values)), "s2d64: non-finite results")
     log(f"s2d64 ({card}): run 1 {runs[0][1]:.1f} s, rerun {runs[1][1]:.2f} s "
-        f"(no call, no launch); the phase {time.time() - t_phase:.1f} s; "
+        f"(no call, no launch); seeds route (seed {S2D64_SEEDS_SEED}, "
+        f"{len(cells)} cells) {seeds_runs[0][1]:.1f} s, rerun "
+        f"{seeds_runs[1][1]:.2f} s (no call, no launch); DDIM-15 AUC "
+        f"{seeds_res[f's2d64_ddim15_eta1/seed{S2D64_SEEDS_SEED}']['auc']:.4f}; "
+        f"the phase {time.time() - t_phase:.1f} s; "
         f"pooled lambda = 0 row (t, dice, ssim, iou, auc) {pooled[0]}; "
         f"diffuse AUC " + ", ".join(
             f"sev {s:g} {diffuse[diffuse_calibration.key(s)]['auc']:.4f}"
             for s in S2D64_SEVERITIES))
-    return runs[0][2]
+    return [a + b for a, b in zip(runs[0][2], seeds_runs[0][2])]
 
 
 # Phase 17, the measuring entry points (anoddpm_torch.bench and the

@@ -14,9 +14,16 @@
 #            trained, then per-lambda curves at every 25th lambda on 22
 #            volumes;
 #   f3       `campaigns.f3_s2d64`: that seed-0 model in three
-#            seed-replication cells against the JAX package's band.
+#            seed-replication cells against the JAX package's band;
+#   seeds S...  for each seed S, `campaigns.seed_replication S
+#            --skip=paper128`: args256syn64s2d seed S trained to its recipe
+#            (8 substeps, 600 epochs) and scored in the 9 s2d64 cells, one
+#            process per seed.  OUT's results file starts as a copy of the
+#            checkout's results/torch_seed_replication.json, so that the
+#            aggregates cover the seeds already there.
 # diffuse and longer need train's model, f3 needs dense's; nothing under
-# build/ outlives a remote call, so a call runs train..longer or dense..f3.
+# build/ outlives a remote call, so a call runs train..longer, dense..f3 or
+# seeds with the seeds it trains (two fit in a call of 3,600 s).
 #
 # Everything runs under build/s2d64, whose results/, metrics/ and
 # final-outputs/ are links into OUT (build/s2d64-out by default), so that
@@ -29,7 +36,7 @@
 set -u
 out=${1:-build/s2d64-out}
 shift || true
-stages=${*:-train diffuse longer dense f3}
+stages=(${*:-train diffuse longer dense f3})
 root=build/s2d64
 mkdir -p "$root/configs" "$out/results" "$out/metrics" "$out/final-outputs"
 cp configs/args256syn64s2d.json "$root/configs/"
@@ -46,13 +53,30 @@ nvidia-smi --query-gpu=timestamp,clocks.sm,power.draw,power.limit,temperature.gp
 smi=$!
 trap 'kill $smi 2>/dev/null; wait $smi 2>/dev/null' EXIT
 m=anoddpm_torch.campaigns
-for stage in $stages; do
+# the seeds stage: one stage "seed<S>" per seed number after "seeds"
+expanded=()
+in_seeds=0
+for stage in "${stages[@]}"; do
+  if [ "$stage" = seeds ]; then
+    in_seeds=1
+  elif [ $in_seeds -eq 1 ] && [[ $stage =~ ^[0-9]+$ ]]; then
+    expanded+=("seed$stage")
+  else
+    in_seeds=0
+    expanded+=("$stage")
+  fi
+done
+seeds_file=results/torch_seed_replication.json
+for stage in "${expanded[@]}"; do
   case $stage in
     train) cmd=(python3 -c "from anoddpm_torch.campaigns.seed_replication import ensure_trained; ensure_trained('256syn64s2d', 1, '$root')") ;;
     diffuse) cmd=(python3 -m $m.diffuse_calibration --root "$root") ;;
     longer) cmd=(python3 -m $m.train_longer 1 1800 --root "$root") ;;
     dense) cmd=(python3 -m $m.dense_sweep 25 22 --root "$root") ;;
     f3) cmd=(python3 -m $m.f3_s2d64 --root "$root") ;;
+    seed[0-9]*)
+      [ -e "$out/$seeds_file" ] || cp "$seeds_file" "$out/$seeds_file"
+      cmd=(python3 -m $m.seed_replication "${stage#seed}" --skip=paper128 --root "$root") ;;
     *) echo "unknown stage $stage"; exit 2 ;;
   esac
   start=$(date +%s)

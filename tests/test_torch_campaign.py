@@ -263,6 +263,47 @@ def test_work_list_cheapest_first_with_skip():
         (3, 8, "256syn128_s3")
 
 
+@pytest.mark.parametrize("skip, trained", [
+    (["paper128"], ["256syn64s2d"]),
+    (["s2d64"], ["256syn128"]),
+    ([], ["256syn128", "256syn64s2d"]),
+    (["paper128", "s2d64"], []),
+])
+def test_run_trains_only_configs_with_a_cell_left(tmp_path, skip, trained):
+    """seed_replication.run with `ensure_trained` and scoring replaced by
+    recorders: a config is trained (every seed) only when a cell of it is
+    left after `skip`, and exactly the kept cells are scored; with no skip
+    every config trains, as before."""
+    calls, scored = [], []
+
+    def ensure(config, seed, root_dir, device):
+        calls.append((config, seed))
+        return f"{config}_s{seed}"
+
+    def load(root_dir, token, device):
+        return {"token": token}, None, None
+
+    def metric(args, root_dir, em, sched, device):
+        scored.append((args["token"], args.get("ddim_steps", 200)))
+        return {m: 0.5 for m in seed_replication.METRICS}
+
+    with mock.patch.object(seed_replication, "ensure_trained", ensure), \
+            mock.patch.object(seed_replication, "_load_eval_model", load), \
+            mock.patch.object(seed_replication, "anomalous_metric_calculation",
+                              metric):
+        res = seed_replication.run([2, 3], skip=skip, root_dir=str(tmp_path),
+                                   device="cpu")
+    assert calls == [(c, s) for c in trained for s in (2, 3)]
+    kept = [cell for c in trained
+            for cell in seed_replication.kept_cells(c, skip)]
+    assert len(scored) == 2 * len(kept)
+    assert {t.rsplit("_s", 1)[0] for t, _ in scored} == set(trained)
+    assert {k for k in res if "/seed" in k} == {
+        f"{cell}/seed{s}" for cell in kept for s in (2, 3)}
+    if skip == ["paper128"]:
+        assert len(kept) == 9 and not any("paper128" in k for k in res)
+
+
 def test_seed_replication_and_small_campaigns_on_cpu(tmp_path):
     """seed_replication.run trains tsmoke_s0, scores one cell on it and
     aggregates over every seed in the file (seed 1's entry was there
@@ -312,3 +353,86 @@ def test_band_holds_the_jax_seeds_and_refuses_a_low_auc():
     held = band.hold(made_up)
     assert not held["auc"]["inside"] and held["dice"]["inside"]
     assert "auc 0.7000 OUTSIDE" in band.verdict(made_up)
+
+
+@pytest.mark.parametrize("port, jax", [
+    ([0.2029, 0.1363, 0.1511, 0.1702], [0.1559, 0.1502, 0.1633, 0.1590, 0.1516]),
+    ([0.71, 0.74, 0.73, 0.76, 0.70], [0.72, 0.73, 0.745, 0.735, 0.74]),
+    ([1.0, 2.0], [1.5, 1.25, 1.75]),
+])
+def test_compare_matches_scipy(port, jax):
+    """band.compare against scipy.stats on fixed vectors: Welch's t and p
+    equal `ttest_ind(equal_var=False)`, the F-test's p is twice the smaller
+    tail of F(n_port - 1, n_jax - 1) at var(port) / var(JAX), sample std
+    with ddof 1; each to 1e-12."""
+    from scipy import stats
+    got = band.compare(port, jax)
+    welch = stats.ttest_ind(port, jax, equal_var=False)
+    a, b = np.asarray(port), np.asarray(jax)
+    f = a.var(ddof=1) / b.var(ddof=1)
+    tail = stats.f.cdf(f, a.size - 1, b.size - 1)
+    want_p = 2 * min(tail, 1 - tail)
+    assert got["port"] == {"n": a.size, "mean": pytest.approx(a.mean(), abs=1e-12),
+                           "std": pytest.approx(a.std(ddof=1), abs=1e-12)}
+    assert got["jax"]["n"] == b.size
+    assert abs(got["jax"]["std"] - stats.tstd(b)) <= 1e-12
+    assert abs(got["welch_t"] - welch.statistic) <= 1e-12
+    assert abs(got["welch_p"] - welch.pvalue) <= 1e-12
+    assert abs(got["f"] - f) <= 1e-12 and abs(got["f_p"] - want_p) <= 1e-12
+    # the F-test is symmetric in its sides: swapping them keeps p
+    assert abs(band.compare(jax, port)["f_p"] - got["f_p"]) <= 1e-12
+
+
+def test_holm_step_down():
+    """Holm at 0.05 over 4 p-values: .01 <= .05/4 and .015 <= .05/3
+    reject, .03 > .05/2 stops the descent, so .04 does not reject (though
+    under .05); the adjusted p-values are the running max of (m - k) p."""
+    out = band.holm({"a": 0.04, "b": 0.01, "c": 0.03, "d": 0.015})
+    assert [out[k]["rejected"] for k in "abcd"] == [False, True, False, True]
+    assert [round(out[k]["adjusted_p"], 12) for k in "bdca"] == [0.04, 0.045,
+                                                                 0.06, 0.06]
+    assert not any(v["rejected"] for v in band.holm({"x": 0.5}).values())
+
+
+def test_two_sample_jax_file_split_against_itself(tmp_path):
+    """The JAX package's seeds 0-2 as the 'port' against its seeds 3-4,
+    through the CLI on files: every s2d64 cell both hold is compared in
+    AUC and Dice, and neither Holm family rejects."""
+    with open(JAX_SEED_RESULTS) as f:
+        committed = json.load(f)
+    first = {k: v for k, v in committed.items() if k[-5:] in ("seed0", "seed1", "seed2")}
+    last = {k: v for k, v in committed.items() if k[-5:] in ("seed3", "seed4")}
+    save_results(str(tmp_path), SEED_REPLICATION, first)
+    save_results(str(tmp_path), "jax.json", last)
+    out = band.main(["--root", str(tmp_path), "--jax",
+                     str(tmp_path / "jax.json")])
+    assert load_results(str(tmp_path), band.F3_TWO_SAMPLE) == json.loads(
+        json.dumps(out))
+    cells = [c for c in seed_replication.MODELS["256syn64s2d"]
+             if f"{c}/aggregate" in committed]
+    assert list(out["cells"]) == cells and len(cells) == 8
+    assert out["cells"][cells[0]]["port_seeds"] == [0, 1, 2]
+    assert out["cells"][cells[0]]["jax_seeds"] == [3, 4]
+    assert len(out["holm"]["welch"]) == len(out["holm"]["f"]) == 16
+    assert out["rejected"] == {"welch": [], "f": []}
+    assert out["verdict"] == "training spread"
+
+
+def test_two_sample_verdicts():
+    """A port sample far above the JAX one is a fault in the level; one
+    spread 20x wider in one cell is a fault in the spread, named by that
+    cell; one seed a side compares nothing."""
+    jax = {f"c/seed{s}": {"auc": 0.70 + 0.01 * s, "dice": 0.15 + 0.002 * s}
+           for s in range(5)}
+    high = {f"c/seed{s}": {"auc": 0.90 + 0.01 * s, "dice": 0.25 + 0.002 * s}
+            for s in range(5)}
+    out = band.two_sample(high, jax, ["c"])
+    assert out["rejected"] == {"welch": ["c/auc", "c/dice"], "f": []}
+    assert out["verdict"] == "a fault in the level"
+    wide = {f"c/seed{s}": {"auc": 0.70 + 0.01 * s, "dice": 0.15 + 0.04 * (s - 2)}
+            for s in range(5)}
+    out = band.two_sample(wide, jax, ["c"])
+    assert out["rejected"] == {"welch": [], "f": ["c/dice"]}
+    assert out["verdict"] == "a fault in the spread"
+    one = band.two_sample({"c/seed1": jax["c/seed1"]}, jax, ["c"])
+    assert one["cells"] == {} and one["verdict"] == "no cell with two seeds a side"

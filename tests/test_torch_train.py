@@ -381,6 +381,45 @@ def test_train_entry_point_on_cpu_with_resume(tmp_path, monkeypatch, capsys):
     assert {float(e["step"]) for e in payload["opt"].values()} == {5.0}
 
 
+def test_train_substeps_1_and_8_are_bit_equal(tmp_path, capsys):
+    """train() at train_substeps 1 and 8 (the band recipe's 8 steps per
+    dispatch) on the s2d64 recipe's layout at 32^2 (space-to-depth 2, bf16),
+    iters_per_epoch 8, epochs 0..2 with the epoch-0 VLB sweep: the final
+    parameters, the EMA and AdamW's state are bit-equal, and so is the
+    VLB line.  Each step draws t and then its noise from the one
+    generator, the sweep draws after the epoch's last step, and the data
+    order does not depend on the substeps: so a model trained at one step
+    per dispatch is a seed of the band recipe."""
+    states, vlb = {}, {}
+    for substeps in (1, 8):
+        args = defaultdict_from_json({**SMOKE, "iters_per_epoch": 8,
+                                      "train_substeps": substeps,
+                                      "space_to_depth": 2,
+                                      "compute_dtype": "bfloat16",
+                                      "checkpoint_every": 1000,
+                                      "skip_test_eval": True})
+        states[substeps] = ttrain.train(args, root_dir=str(tmp_path / str(substeps)),
+                                        max_epochs=2, device="cpu")
+        vlb[substeps] = [line.split(", VLB sweep")[0]
+                         for line in capsys.readouterr().out.splitlines()
+                         if "total VLB" in line]
+    one, eight = states[1], states[8]
+    assert one.step == eight.step == 24
+    assert vlb[1] == vlb[8] and len(vlb[1]) == 1
+    for name, a in one.model.state_dict().items():
+        assert torch.equal(a, eight.model.state_dict()[name]), name
+    for name, a in one.ema.state_dict().items():
+        assert torch.equal(a, eight.ema.state_dict()[name]), name
+    opt1, opt8 = ttr.optimizer_state(one), ttr.optimizer_state(eight)
+    assert sorted(opt1) == sorted(opt8) == sorted(
+        n for n, _ in one.model.named_parameters())
+    for name, entry in opt1.items():
+        assert sorted(entry) == ["exp_avg", "exp_avg_sq", "step"]
+        for k, v in entry.items():
+            assert torch.equal(v, opt8[name][k]), (name, k)
+    assert float(opt1[name]["step"]) == 24.0
+
+
 class StandIn(torch.nn.Module):
     """A one-layer stand-in for the UNet: eps = 0.1 conv1x1(x)."""
 

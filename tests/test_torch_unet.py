@@ -90,3 +90,69 @@ def test_init_is_flax_lecun_normal(kind):
     assert np.abs(got).max() <= 2 * s + 1e-6
     assert ks_2samp(got, want).statistic < 0.01
     assert not zero.weight.detach().any() and not layer.bias.detach().any()
+
+
+# lecun_normal's truncation: s = sqrt(1/fan_in) / this, cut at +-2 s
+_TRUNC_STD = 0.87962566103423978
+
+
+def _fresh_pair(config: str):
+    """A fresh port UNet under torch seed 0 (as `train.new_train_state`
+    builds it) and the JAX UNet's `init` under key 0 (as
+    `training.init_train_state` calls it), both from configs/args{config},
+    the JAX side mapped onto the port's names: two dicts of numpy arrays."""
+    from anoddpm_tpu.models.unet import unet_from_args as jax_unet_from_args
+    from anoddpm_torch.compat.flax_params import unet_state_dict_from_flax
+    from anoddpm_torch.config import load_args
+    args = load_args(config)
+    img = args["img_size"][0]
+    torch.manual_seed(0)
+    port = unet_from_args(args, 1)
+    fmodel = jax_unet_from_args(args, 1)
+    params = jax.jit(fmodel.init)(jax.random.key(0),
+                                  jnp.zeros((1, img, img, 1), jnp.float32),
+                                  jnp.zeros((1,), jnp.int32))
+    got = {k: v.detach().float().numpy() for k, v in port.state_dict().items()}
+    want = {k: v.numpy() for k, v in unet_state_dict_from_flax(params).items()}
+    return got, want
+
+
+@pytest.mark.parametrize("config", ["256syn64s2d", "256syn128"])
+def test_whole_unet_init_matches_flax(config):
+    """Every parameter of a fresh UNet against flax's `init` of the same
+    config (bf16 compute): the same names and shapes, the same all-zero
+    parameters (biases, conv_out, attention's proj, out_conv) and all-one
+    norm scales, and every other kernel lecun_normal on its own fan_in
+    (in x kh x kw; the stem's fan_in is 9 x s2d^2 after space-to-depth):
+    no weight beyond 2 s on either side, s = sqrt(1/fan_in) / 0.8796; each
+    kernel divided by its s and all pooled, a two-sample KS statistic below
+    0.01 against JAX's pooled draw (4M weights of each pool drawn from a
+    seed: args256syn128 pools 130M); a kernel of 4,096 weights or more with
+    its std within 3% of flax's."""
+    from scipy.stats import ks_2samp
+    got, want = _fresh_pair(config)
+    assert sorted(got) == sorted(want)
+    assert {k: v.shape for k, v in got.items()} == {k: v.shape for k, v in want.items()}
+    zeros = lambda d: {k for k, v in d.items() if not v.any()}
+    ones = lambda d: {k for k, v in d.items() if (v == 1).all()}
+    assert zeros(got) == zeros(want)
+    assert ones(got) == ones(want)
+    assert all(k.endswith(".weight") and got[k].ndim == 1 for k in ones(got))
+    kernels = sorted(k for k in got if got[k].ndim >= 2 and k not in zeros(got))
+    assert "stem.weight" in kernels and got["stem.weight"].shape[1] == (
+        4 if "s2d" in config else 1)
+    pooled_got, pooled_want, wide = [], [], 0
+    for k in kernels:
+        fan_in = int(np.prod(got[k].shape[1:]))
+        s = np.sqrt(1.0 / fan_in) / _TRUNC_STD
+        for side in (got[k], want[k]):
+            assert np.abs(side).max() <= 2 * s * (1 + 1e-6), k
+        pooled_got.append(got[k].ravel() / s)
+        pooled_want.append(want[k].ravel() / s)
+        if got[k].size >= 4096:
+            wide += 1
+            assert abs(got[k].std() / want[k].std() - 1.0) <= 0.03, k
+    assert wide >= len(kernels) - 2
+    pooled_got, pooled_want = np.concatenate(pooled_got), np.concatenate(pooled_want)
+    pick = np.random.default_rng(0).integers(0, pooled_got.size, 1 << 22)
+    assert ks_2samp(pooled_got[pick], pooled_want[pick]).statistic < 0.01
