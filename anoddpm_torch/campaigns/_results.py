@@ -17,6 +17,7 @@ TRAIN_LONGER = "results/torch_train_longer.json"
 DENSE_SWEEP = "results/torch_dense_sweep_full.json"
 F3_S2D64 = "results/torch_f3_s2d64.json"
 F3_TWO_SAMPLE = "results/torch_f3_two_sample.json"
+F3_FLAX_ORDER = "results/torch_f3_flax_order_two_sample.json"
 
 
 def load_results(root_dir: str, name: str) -> Dict[str, Any]:

@@ -13,6 +13,13 @@ compares the s2d64 cells of DIR's ``results/torch_seed_replication.json``
 with the checkout's JAX file and writes ``results/torch_f3_two_sample.json``
 under DIR.
 
+F3's rounding A/B (`flax_order_verdict`): ``... band --flax-order`` holds
+the seeds trained in the JAX package's norm order (DIR's
+``results/torch_f3_flax_order_seeds*.json``) against the JAX package's
+seeds (i) and against the port's default-order seeds of DIR's
+``results/torch_seed_replication.json`` (ii), both by the rule above, and
+writes both with the verdict to ``results/torch_f3_flax_order_two_sample.json``.
+
 The files are read as data; nothing of the JAX side is imported.  The two
 packages draw from different RNGs (threefry, Philox), so one seed of the
 port is not one seed of the JAX package: only the samples compare."""
@@ -20,6 +27,7 @@ port is not one seed of the JAX package: only the samples compare."""
 from __future__ import annotations
 
 import argparse
+import glob
 import json
 import os
 import sys
@@ -28,8 +36,9 @@ from typing import Dict, Mapping, Optional, Sequence
 import numpy as np
 from scipy import stats
 
-from ._results import F3_TWO_SAMPLE, SEED_REPLICATION, save_results
-from .seed_replication import MODELS, seed_entries
+from ._results import (F3_FLAX_ORDER, F3_TWO_SAMPLE, SEED_REPLICATION,
+                       save_results)
+from .seed_replication import FLAX_ORDER_RESULTS, MODELS, seed_entries
 
 K = 2.0
 CELL = "paper128_ddpm200"
@@ -38,6 +47,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 JAX_SEED_RESULTS = os.path.join(ROOT, "results", "seed_replication.json")
 ALPHA = 0.05
 TWO_SAMPLE_METRICS = ("auc", "dice")
+# F3's cell and metric, named before the A/B's runs
+F3_CELL = ("s2d64_ddim20_eta1", "dice")
 
 
 def load_band(cell: str = CELL, path: Optional[str] = None,
@@ -80,11 +91,12 @@ def _side(values: np.ndarray) -> Dict[str, float]:
             "std": float(values.std(ddof=1))}
 
 
-def compare(port_values: Sequence[float],
-            jax_values: Sequence[float]) -> Dict[str, object]:
+def compare(port_values: Sequence[float], jax_values: Sequence[float],
+            sides: Sequence[str] = ("port", "jax")) -> Dict[str, object]:
     """Two samples of one metric: n, mean and sample std (ddof 1) of each
-    side; Welch's t (port minus JAX) with its two-sided p; the F-test of
-    the variances, F = var(port) / var(JAX), with its two-sided p."""
+    side, under the names `sides`; Welch's t (port minus JAX) with its
+    two-sided p; the F-test of the variances, F = var(port) / var(JAX), with
+    its two-sided p."""
     a = np.asarray(port_values, np.float64)
     b = np.asarray(jax_values, np.float64)
     if min(a.size, b.size) < 2:
@@ -93,7 +105,7 @@ def compare(port_values: Sequence[float],
     f = float(a.var(ddof=1) / b.var(ddof=1))
     dfa, dfb = a.size - 1, b.size - 1
     f_p = min(1.0, 2.0 * min(stats.f.cdf(f, dfa, dfb), stats.f.sf(f, dfa, dfb)))
-    return {"port": _side(a), "jax": _side(b),
+    return {sides[0]: _side(a), sides[1]: _side(b),
             "welch_t": float(welch.statistic), "welch_p": float(welch.pvalue),
             "f": f, "f_p": float(f_p)}
 
@@ -113,22 +125,25 @@ def holm(pvalues: Mapping[str, float]) -> Dict[str, Dict[str, object]]:
     return out
 
 
-def two_sample(port: Mapping, jax: Mapping,
-               cells: Sequence[str]) -> Dict[str, object]:
+def two_sample(port: Mapping, jax: Mapping, cells: Sequence[str],
+               sides: Sequence[str] = ("port", "jax")) -> Dict[str, object]:
     """`compare` in every cell of `cells` that both results dicts hold with
-    two seeds or more, in AUC and Dice; Holm over the Welch p-values and,
-    apart, over the F-test p-values; the verdict: a fault in the spread if
-    an F-test rejects, in the level if a Welch test rejects, else
-    "training spread" (or none, when no cell has two seeds a side)."""
+    two seeds or more, in AUC and Dice (the sides named `sides`); Holm over
+    the Welch p-values and, apart, over the F-test p-values; the verdict: a
+    fault in the spread if an F-test rejects, in the level if a Welch test
+    rejects, else "training spread" (or none, when no cell has two seeds a
+    side)."""
     table: Dict[str, Dict[str, object]] = {}
     for cell in cells:
         ours, theirs = seed_entries(port, cell), seed_entries(jax, cell)
         if min(len(ours), len(theirs)) < 2:
             continue
-        table[cell] = {"port_seeds": sorted(ours), "jax_seeds": sorted(theirs)}
+        table[cell] = {f"{sides[0]}_seeds": sorted(ours),
+                       f"{sides[1]}_seeds": sorted(theirs)}
         for m in TWO_SAMPLE_METRICS:
             table[cell][m] = compare([ours[s][m] for s in sorted(ours)],
-                                     [theirs[s][m] for s in sorted(theirs)])
+                                     [theirs[s][m] for s in sorted(theirs)],
+                                     sides)
     families = {test: holm({f"{c}/{m}": table[c][m][f"{test}_p"]
                             for c in table for m in TWO_SAMPLE_METRICS})
                 for test in ("welch", "f")}
@@ -139,8 +154,103 @@ def two_sample(port: Mapping, jax: Mapping,
     verdict = ("no cell with two seeds a side" if not table
                else "a fault in the " + " and the ".join(faults) if faults
                else "training spread")
-    return {"alpha": ALPHA, "cells": table, "holm": families,
-            "rejected": rejected, "verdict": verdict}
+    return {"alpha": ALPHA, "sides": list(sides), "cells": table,
+            "holm": families, "rejected": rejected, "verdict": verdict}
+
+
+def merged_seed_files(paths: Sequence[str]) -> Dict[str, object]:
+    """The {cell}/seed{n} entries of every results file in `paths` in one
+    dict (aggregates left out); raises where two files disagree on one."""
+    merged: Dict[str, object] = {}
+    for path in paths:
+        with open(path) as f:
+            for key, value in json.load(f).items():
+                if key.endswith("/aggregate"):
+                    continue
+                if merged.get(key, value) != value:
+                    raise ValueError(f"{path}: {key} differs from another file")
+                merged[key] = value
+    return merged
+
+
+def paired(a: Mapping, b: Mapping, cells: Sequence[str]) -> Dict[str, Dict]:
+    """Per cell and metric, the seeds both results dicts hold and a's
+    value minus b's for each, with the mean and the largest |difference|:
+    the same seed trained twice, here in two norm orders."""
+    out: Dict[str, Dict] = {}
+    for cell in cells:
+        ours, theirs = seed_entries(a, cell), seed_entries(b, cell)
+        seeds = sorted(set(ours) & set(theirs))
+        if not seeds:
+            continue
+        out[cell] = {"seeds": seeds}
+        for m in TWO_SAMPLE_METRICS:
+            d = [ours[s][m] - theirs[s][m] for s in seeds]
+            out[cell][m] = {"diff": d, "mean": float(np.mean(d)),
+                            "max_abs": float(np.max(np.abs(d)))}
+    return out
+
+
+def flax_order_verdict(vs_jax: Mapping, vs_kernel: Mapping) -> str:
+    """F3's verdict from the flax-order seeds against the JAX seeds (i) and
+    against the default-order seeds (ii), by the rule of PERF.md section 2:
+    "not the norm's order" if (i)'s F-test of DDIM-20 Dice rejects under
+    Holm; "the norm's order" if (i) rejects nothing and (ii)'s F-test of
+    DDIM-20 Dice, the cell named in advance, has p < ALPHA unadjusted;
+    else "open"."""
+    named = "/".join(F3_CELL)
+    if vs_jax["holm"]["f"].get(named, {}).get("rejected"):
+        return "not the norm's order"
+    cell, metric = F3_CELL
+    f_p = vs_kernel["cells"].get(cell, {}).get(metric, {}).get("f_p")
+    if not any(vs_jax["rejected"].values()) and f_p is not None and f_p < ALPHA:
+        return "the norm's order"
+    return "open"
+
+
+def flax_order_main(root: str, jax_path: str) -> Dict[str, object]:
+    """The A/B's two comparisons and verdict, written under `root`."""
+    paths = sorted(glob.glob(os.path.join(root, FLAX_ORDER_RESULTS.format("*"))))
+    if not paths:
+        raise FileNotFoundError(f"no {FLAX_ORDER_RESULTS.format('*')} under "
+                                f"{root}")
+    flax = merged_seed_files(paths)
+    with open(os.path.join(root, SEED_REPLICATION)) as f:
+        kernel = json.load(f)
+    with open(jax_path) as f:
+        jax = json.load(f)
+    cells = MODELS["256syn64s2d"]
+    vs_jax = two_sample(flax, jax, cells, ("flax_order", "jax"))
+    vs_kernel = two_sample(flax, kernel, cells, ("flax_order", "kernel_order"))
+    out = {"files": [os.path.relpath(p, root) for p in paths],
+           "named": "/".join(F3_CELL), "vs_jax": vs_jax,
+           "vs_kernel_order": vs_kernel,
+           "paired_flax_minus_kernel": paired(flax, kernel, cells),
+           "verdict": flax_order_verdict(vs_jax, vs_kernel)}
+    save_results(root, F3_FLAX_ORDER, out)
+    for what, res in (("(i) vs JAX", vs_jax), ("(ii) vs kernel order", vs_kernel)):
+        _print(what, res)
+    for cell, row in out["paired_flax_minus_kernel"].items():
+        print(f"paired, flax order minus kernel order, {cell}: " + "; ".join(
+            f"{m} mean {row[m]['mean']:+.4f}, max |d| {row[m]['max_abs']:.4f}"
+            for m in TWO_SAMPLE_METRICS))
+    print(f"F3's rounding A/B: {out['verdict']}")
+    return out
+
+
+def _print(what: str, out: Mapping) -> None:
+    a, b = out["sides"]
+    print(what)
+    for cell, row in out["cells"].items():
+        print(f"{cell}: {a} seeds {row[f'{a}_seeds']}, {b} seeds "
+              f"{row[f'{b}_seeds']}")
+        for m in TWO_SAMPLE_METRICS:
+            c = row[m]
+            print(f"  {m}: {a} {c[a]['mean']:.4f} +- {c[a]['std']:.4f}, {b} "
+                  f"{c[b]['mean']:.4f} +- {c[b]['std']:.4f}; Welch p "
+                  f"{c['welch_p']:.4f}, F {c['f']:.2f} p {c['f_p']:.4f}")
+    print(f"Holm at {out['alpha']}: Welch rejects {out['rejected']['welch']}, "
+          f"F rejects {out['rejected']['f']}: {out['verdict']}")
 
 
 def main(argv=None):
@@ -149,24 +259,19 @@ def main(argv=None):
                    help="reads DIR/results/torch_seed_replication.json and "
                         "writes DIR/results/torch_f3_two_sample.json")
     p.add_argument("--jax", default=JAX_SEED_RESULTS)
+    p.add_argument("--flax-order", action="store_true",
+                   help="F3's rounding A/B: the flax-order seeds against the "
+                        "JAX seeds and the default-order seeds")
     ns = p.parse_args(sys.argv[1:] if argv is None else argv)
+    if ns.flax_order:
+        return flax_order_main(ns.root, ns.jax)
     with open(os.path.join(ns.root, SEED_REPLICATION)) as f:
         port = json.load(f)
     with open(ns.jax) as f:
         jax = json.load(f)
     out = two_sample(port, jax, MODELS["256syn64s2d"])
     save_results(ns.root, F3_TWO_SAMPLE, out)
-    for cell, row in out["cells"].items():
-        print(f"{cell}: port seeds {row['port_seeds']}, JAX seeds "
-              f"{row['jax_seeds']}")
-        for m in TWO_SAMPLE_METRICS:
-            c = row[m]
-            print(f"  {m}: port {c['port']['mean']:.4f} +- "
-                  f"{c['port']['std']:.4f}, JAX {c['jax']['mean']:.4f} +- "
-                  f"{c['jax']['std']:.4f}; Welch p {c['welch_p']:.4f}, "
-                  f"F {c['f']:.2f} p {c['f_p']:.4f}")
-    print(f"Holm at {out['alpha']}: Welch rejects {out['rejected']['welch']}, "
-          f"F rejects {out['rejected']['f']}: {out['verdict']}")
+    _print("the port's seeds vs JAX", out)
     return out
 
 

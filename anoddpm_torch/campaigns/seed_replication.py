@@ -1,6 +1,7 @@
 """Seed-replicated quality evidence:
 ``python -m anoddpm_torch.campaigns.seed_replication [seeds...]
-[--skip=a,b] [--root DIR]`` (seeds 0 1 2 3 4 by default).
+[--skip=a,b] [--norm-order kernel|flax] [--root DIR]`` (seeds 0 1 2 3 4 by
+default).
 
 Counterpart of `scripts/seed_replication.py`.  Each model cell trains
 fresh seeds end to end through `train.train` (8 steps per dispatch, token
@@ -10,6 +11,13 @@ at 200), and the aggregates are taken over every seed in the file.
 Results go to ``results/torch_seed_replication.json`` under DIR, one entry
 ``{cell}/seed{n}`` at a time (a rerun skips finished entries).  `--skip`
 leaves out the cells whose names contain one of its substrings.
+
+`--norm-order flax` trains the seeds in the JAX package's own norm order
+as its seed band was trained (`NORM_ORDERS`: `norm_impl` "flax",
+`bf16_norm` and `pallas_norm` off), under their own tokens
+``{config}_s{seed}_flaxorder``, and writes their entries to
+``results/torch_f3_flax_order_seeds{seeds}.json``, one file per process,
+so that processes of different seeds can run at once.
 """
 
 from __future__ import annotations
@@ -74,23 +82,44 @@ PROTOCOLS = {
 }
 METRICS = ("auc", "dice", "ssim", "iou")
 SUBSTEPS = 8
+# The norm orders a seed can be trained in: the config's own ("kernel": the
+# port's default, K2 in the TPU kernel's order), or the order the JAX
+# package's seed band was trained in (flax's composition at every site, with
+# the fp32 norm gradient of before the `bf16_norm` flip), each with the
+# suffix of its tokens.
+NORM_ORDERS = {"kernel": ({}, ""),
+               "flax": ({"norm_impl": "flax", "bf16_norm": False,
+                         "pallas_norm": False}, "_flaxorder")}
+FLAX_ORDER_RESULTS = "results/torch_f3_flax_order_seeds{}.json"
 
 
-def train_args_for(config: str, seed: int, root_dir: str = "."):
-    """configs/args{config}.json under `root_dir` with the seed, 8 substeps
-    and the token {config}_s{seed}."""
+def results_name(seeds: Sequence[int], norm_order: str = "kernel") -> str:
+    """The results file of a run of `seeds` in `norm_order`."""
+    if norm_order == "kernel":
+        return SEED_REPLICATION
+    return FLAX_ORDER_RESULTS.format("".join(str(s) for s in seeds))
+
+
+def train_args_for(config: str, seed: int, root_dir: str = ".",
+                   norm_order: str = "kernel"):
+    """configs/args{config}.json under `root_dir` with the seed, 8 substeps,
+    the keys of `norm_order` and the token {config}_s{seed} (with the
+    order's suffix)."""
+    norm, suffix = NORM_ORDERS[norm_order]
     args = copy.deepcopy(load_args(config,
                                    config_dir=os.path.join(root_dir, "configs")))
+    args.update(norm)
     args["seed"] = seed
     args["train_substeps"] = SUBSTEPS
-    args["arg_num"] = f"{config}_s{seed}"
+    args["arg_num"] = f"{config}_s{seed}{suffix}"
     return args
 
 
 def ensure_trained(config: str, seed: int, root_dir: str = ".",
-                   device: DeviceLike = None) -> str:
-    """Train {config}_s{seed} unless its params-final exists; its token."""
-    args = train_args_for(config, seed, root_dir)
+                   device: DeviceLike = None, norm_order: str = "kernel") -> str:
+    """Train {config}_s{seed} (in `norm_order`) unless its params-final
+    exists; its token."""
+    args = train_args_for(config, seed, root_dir, norm_order)
     token = args["arg_num"]
     final = os.path.join(root_dir, "model", f"diff-params-ARGS={token}",
                          "params-final", "payload.msgpack")
@@ -153,14 +182,17 @@ def aggregate(res, seeds=None, cells=None) -> None:
 
 
 def run(seeds: Sequence[int] = (0, 1, 2, 3, 4), skip: Sequence[str] = (),
-        root_dir: str = ".", device: DeviceLike = None):
+        root_dir: str = ".", device: DeviceLike = None,
+        norm_order: str = "kernel"):
     """Train every (config, seed) of MODELS that has a cell left after
-    `skip`, evaluate every missing entry, aggregate; returns the results
-    dict."""
+    `skip`, in `norm_order`, evaluate every missing entry, aggregate;
+    returns the results dict."""
     device = resolve_device(device)
-    res = load_results(root_dir, SEED_REPLICATION)
+    name = results_name(seeds, norm_order)
+    res = load_results(root_dir, name)
     # training first: the expensive assets exist even if evaluation stops
-    tokens = {(config, seed): ensure_trained(config, seed, root_dir, device)
+    tokens = {(config, seed): ensure_trained(config, seed, root_dir, device,
+                                             norm_order)
               for config in MODELS if kept_cells(config, skip)
               for seed in seeds}
     for _, config, cell, seed in work_list(res, seeds, skip):
@@ -172,11 +204,11 @@ def run(seeds: Sequence[int] = (0, 1, 2, 3, 4), skip: Sequence[str] = (),
                                                root_dir=root_dir, em=em,
                                                sched=sched, device=device)
         res[key] = {m: summary[m] for m in METRICS}
-        save_results(root_dir, SEED_REPLICATION, res)
+        save_results(root_dir, name, res)
         print(f"=== {key}: AUC {summary['auc']:.4f} "
               f"Dice {summary['dice']:.4f}", flush=True)
     aggregate(res, seeds)
-    save_results(root_dir, SEED_REPLICATION, res)
+    save_results(root_dir, name, res)
     return res
 
 
@@ -186,10 +218,13 @@ def main(argv=None, device: DeviceLike = None):
     p.add_argument("seeds", nargs="*", type=int)
     p.add_argument("--skip", default="",
                    help="comma-separated substrings of cells to leave out")
+    p.add_argument("--norm-order", choices=sorted(NORM_ORDERS),
+                   default="kernel")
     p.add_argument("--root", default=".")
     ns = p.parse_args(sys.argv[1:] if argv is None else argv)
     return run(ns.seeds or [0, 1, 2, 3, 4],
-               [s for s in ns.skip.split(",") if s], ns.root, device=device)
+               [s for s in ns.skip.split(",") if s], ns.root, device=device,
+               norm_order=ns.norm_order)
 
 
 if __name__ == "__main__":

@@ -57,6 +57,32 @@ __device__ __forceinline__ void from_f(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
+// v rounded to T and back to fp32 (v itself for fp32).
+template <typename T> __device__ __forceinline__ float round_to(float v);
+template <> __device__ __forceinline__ float round_to<float>(float v) {
+  return v;
+}
+template <> __device__ __forceinline__ float round_to<__nv_bfloat16>(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// The norm+SiLU site in the JAX package's default order (flax's GroupNorm,
+// then `nn.silu` in the activation dtype T), one operation at a time as the
+// plain version (`_flax_site`) rounds it, none fused into an fma:
+//   h = (x - mean) * mul + beta in fp32, mul = rstd * gamma_c, rounded to T;
+//   s = 1 / (1 + exp(-h)), each of exp, the add and the reciprocal rounded
+//       to T (in fp32 one sigmoid), with the accurate expf;
+//   out = h * s (rounded by the caller's store).
+__device__ __forceinline__ float flax_norm_value(float x, float mean,
+                                                 float mul, float beta) {
+  return __fadd_rn(__fmul_rn(__fsub_rn(x, mean), mul), beta);
+}
+template <typename T>
+__device__ __forceinline__ float jax_sigmoid(float h) {
+  const float e = round_to<T>(expf(-h));
+  return round_to<T>(__fdiv_rn(1.0f, round_to<T>(__fadd_rn(1.0f, e))));
+}
+
 // Sum a and b over the warp in a fixed order; every lane gets the totals.
 __device__ __forceinline__ void warp_sum2(float& a, float& b) {
   for (int off = 16; off > 0; off >>= 1) {

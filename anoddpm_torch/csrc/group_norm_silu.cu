@@ -7,6 +7,15 @@
 //   y = x * (rstd * gamma_c) + (beta_c - mean * rstd * gamma_c)
 //   out = y * sigmoid(y), stored in x's dtype (fp32 or bf16)
 //
+// A second order (ORDER_FLAX) computes the same site in the order of the
+// JAX package's default UNet, flax's GroupNorm32 then `nn.silu` in x's
+// dtype (anoddpm_tpu/models/unet.py:48-83, plain XLA there): var =
+// max(E[x^2] - mean^2, 0) with the mean and E[x^2] divided by the group's
+// length, rstd = 1 / sqrt(var + eps), h = (x - mean) * (rstd * gamma_c) +
+// beta_c rounded once to x's dtype, then SiLU op by op in that dtype
+// (`flax_norm_value`, `jax_sigmoid` in cluster_staging.cuh).  Everything
+// else, the layout and the passes, is the same.
+//
 // Bound: bytes.  The least traffic is one read and one write of x; the
 // arithmetic is a few operations per element.
 //
@@ -41,6 +50,8 @@ namespace {
 constexpr int GROUPS = 32;
 constexpr int MAX_THREADS = 256;
 constexpr int CHUNKS = 4;
+constexpr int ORDER_KERNEL = 0;  // the TPU kernel's order
+constexpr int ORDER_FLAX = 1;    // flax's GroupNorm, then SiLU in x's dtype
 
 struct Params {
   const void* x;
@@ -80,9 +91,21 @@ __device__ __forceinline__ void add_vectors(const T* src, int begin, int end,
   }
 }
 
+// One output element from x's value v: in ORDER's order, with (a, b) the
+// channel's (scale, shift) for ORDER_KERNEL and (mul, beta) for ORDER_FLAX.
+template <typename T, int ORDER>
+__device__ __forceinline__ float site(float v, float mean, float a, float b) {
+  if constexpr (ORDER == ORDER_KERNEL) {
+    return silu(v * a + b);
+  } else {
+    const float h = round_to<T>(flax_norm_value(v, mean, a, b));
+    return __fmul_rn(h, jax_sigmoid<T>(h));
+  }
+}
+
 // grid: (N * 32 * cluster) blocks; block b owns slice b % cluster of group
 // b / cluster.  Launched with cluster dims (cluster, 1, 1) when cluster > 1.
-template <typename T>
+template <typename T, int ORDER>
 __global__ void __launch_bounds__(MAX_THREADS)
     group_norm_silu_kernel(const Params p) {
   using V = Vec<T>;
@@ -171,10 +194,18 @@ __global__ void __launch_bounds__(MAX_THREADS)
     }
   }
   if (tid == 0) {
-    const float inv_n = 1.0f / (float)p.group_len;
-    const float m = s * inv_n;
-    const float var = fmaxf(ss * inv_n - m * m, 0.0f);
-    const float r = rsqrtf(var + p.eps);
+    float m, r;
+    if constexpr (ORDER == ORDER_KERNEL) {
+      const float inv_n = 1.0f / (float)p.group_len;
+      m = s * inv_n;
+      r = rsqrtf(fmaxf(ss * inv_n - m * m, 0.0f) + p.eps);
+    } else {
+      const float len = (float)p.group_len;
+      m = __fdiv_rn(s, len);
+      const float var = fmaxf(__fsub_rn(__fdiv_rn(ss, len), __fmul_rn(m, m)),
+                              0.0f);
+      r = __fdiv_rn(1.0f, __fsqrt_rn(__fadd_rn(var, p.eps)));
+    }
     stats[0] = m;
     stats[1] = r;
     if (rank == 0 && p.mean != nullptr) {
@@ -186,45 +217,61 @@ __global__ void __launch_bounds__(MAX_THREADS)
   // This block has read the others' sums; they may exit once all have.
   if (p.cluster > 1) cluster_arrive();
 
-  // Pass 2: silu(x * scale_c + shift_c); channel = g C/32 + (offset / H W).
+  // Pass 2: each element of channel g C/32 + (offset / H W), from the
+  // channel's (scale, shift) = (rstd gamma_c, beta_c - mean scale) in K2's
+  // order, (mul, beta_c) = (rstd gamma_c, beta_c) in flax's.
   const float mean = stats[0], rstd = stats[1];
   const int ch0 = (int)(group % GROUPS) * (p.c / GROUPS);
+  auto channel = [&](int ch, float& a, float& b) {
+    a = __fmul_rn(rstd, __ldg(p.gamma + ch));
+    b = ORDER == ORDER_KERNEL ? __ldg(p.beta + ch) - mean * a
+                              : __ldg(p.beta + ch);
+  };
   if (p.vec) {
     const T* src = p.staged ? buf : x;
     for (int i = tid * W; i < len; i += nthreads * W) {
-      const int ch = ch0 + (lo + i) / p.hw;
-      const float scale = rstd * __ldg(p.gamma + ch);
-      const float shift = __ldg(p.beta + ch) - mean * scale;
+      float a, b;
+      channel(ch0 + (lo + i) / p.hw, a, b);
       float v[W];
       V::load(src + i, v);
 #pragma unroll
-      for (int j = 0; j < W; ++j) v[j] = silu(v[j] * scale + shift);
+      for (int j = 0; j < W; ++j) v[j] = site<T, ORDER>(v[j], mean, a, b);
       V::store(out + i, v);
     }
   } else {
     for (int i = tid; i < len; i += nthreads) {
-      const int ch = ch0 + (lo + i) / p.hw;
-      const float scale = rstd * __ldg(p.gamma + ch);
-      const float shift = __ldg(p.beta + ch) - mean * scale;
-      from_f(out + i, silu(to_f(x[i]) * scale + shift));
+      float a, b;
+      channel(ch0 + (lo + i) / p.hw, a, b);
+      from_f(out + i, site<T, ORDER>(to_f(x[i]), mean, a, b));
     }
   }
   if (p.cluster > 1) cluster_wait();
 }
 
+// Both orders' kernels set up; the clusters the card holds at once of the
+// one that holds fewer.
 template <typename T>
 cudaError_t prepare(int cluster, int threads, int smem, int* max_clusters) {
-  return prepare_kernel(group_norm_silu_kernel<T>, cluster, threads, smem,
-                        max_clusters);
+  int flax = 0;
+  cudaError_t err = prepare_kernel(group_norm_silu_kernel<T, ORDER_KERNEL>,
+                                   cluster, threads, smem, max_clusters);
+  if (err == cudaSuccess)
+    err = prepare_kernel(group_norm_silu_kernel<T, ORDER_FLAX>, cluster,
+                         threads, smem, &flax);
+  if (flax < *max_clusters) *max_clusters = flax;
+  return err;
 }
 
 template <typename T>
-cudaError_t launch(const Params& p, int n, int threads, int smem,
+cudaError_t launch(const Params& p, int n, int threads, int smem, int order,
                    cudaStream_t stream) {
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = launch_config(
       n * GROUPS * p.cluster, p.cluster, threads, smem, stream, &attr);
-  cudaError_t err = cudaLaunchKernelEx(&cfg, group_norm_silu_kernel<T>, p);
+  cudaError_t err =
+      order == ORDER_KERNEL
+          ? cudaLaunchKernelEx(&cfg, group_norm_silu_kernel<T, ORDER_KERNEL>, p)
+          : cudaLaunchKernelEx(&cfg, group_norm_silu_kernel<T, ORDER_FLAX>, p);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
@@ -251,10 +298,14 @@ int group_norm_silu_prepare(int dtype_code, int cluster, int threads, int smem,
 // gamma, beta: (c,) fp32; stats: (2, n, 32) fp32, mean then rstd, or null
 // to skip them.
 // cluster, slice_len, threads, smem: the wrapper's plan.
+// order: 0 the TPU kernel's, 1 flax's (ORDER_KERNEL, ORDER_FLAX).
 int group_norm_silu_forward(const void* x, const void* gamma, const void* beta,
                             void* out, void* stats, int n, int c, int hw,
                             int cluster, int slice_len, int threads, int smem,
-                            float eps, int dtype_code, void* stream) {
+                            float eps, int dtype_code, int order,
+                            void* stream) {
+  if (order != ORDER_KERNEL && order != ORDER_FLAX)
+    return (int)cudaErrorInvalidValue;
   const int width = dtype_code == 0 ? 4 : 8;  // elements in 16 bytes
   Params p;
   p.x = x;
@@ -272,9 +323,10 @@ int group_norm_silu_forward(const void* x, const void* gamma, const void* beta,
   p.staged = smem > 0 && p.vec;
   p.eps = eps;
   if (dtype_code == 0)
-    return (int)launch<float>(p, n, threads, smem, (cudaStream_t)stream);
+    return (int)launch<float>(p, n, threads, smem, order,
+                              (cudaStream_t)stream);
   if (dtype_code == 1)
-    return (int)launch<__nv_bfloat16>(p, n, threads, smem,
+    return (int)launch<__nv_bfloat16>(p, n, threads, smem, order,
                                       (cudaStream_t)stream);
   return (int)cudaErrorInvalidValue;
 }

@@ -15,6 +15,19 @@
 //
 // with L = (C / 32) H W elements per group.
 //
+// In flax's order (the forward's ORDER_FLAX, csrc/group_norm_silu.cu) dz is
+// the gradient at the norm's fp32 output h = (x - mean) * rstd * gamma_c +
+// beta_c through the site that rounds h to x's dtype and runs SiLU op by
+// op: with y = h rounded and s = its sigmoid as the forward computes them,
+// dz = g s + (g y)(s (1 - s)), JAX's rule for the product and its logistic
+// with each op rounded to x's dtype (`_JaxSiLU.backward` in the port's
+// ops/group_norm_silu.py).  The GroupNorm backward that follows is the
+// same.  ORDER_FLAX rounds dx once; ORDER_FLAX_BF16_PATH rounds its two
+// branches, the centring dz * rstd * gamma_c and the statistics'
+// -(m1 + xhat m2) * rstd, to x's dtype each and sums them in x's dtype, as
+// autograd does where flax's statistics and centring each convert x to fp32
+// (the JAX package's `GroupNorm32(bf16_path=True)`).
+//
 // Bound: bytes.  The least traffic is one read of x and of grad_out and one
 // write of dx; the arithmetic is a few tens of operations per element.
 //
@@ -71,6 +84,9 @@ constexpr int GROUPS = 32;
 constexpr int MAX_THREADS = 512;
 constexpr int MAX_WARPS = MAX_THREADS / 32;
 constexpr int CHUNKS = 2;
+constexpr int ORDER_KERNEL = 0;          // the TPU kernel's order
+constexpr int ORDER_FLAX = 1;            // flax's GroupNorm, SiLU in x's dtype
+constexpr int ORDER_FLAX_BF16_PATH = 2;  // as 1, dx rounded per branch
 
 struct Params {
   const void* x;
@@ -120,15 +136,41 @@ __device__ __forceinline__ float rcp_approx(float v) {
   return r;
 }
 
-// dz of one element of channel (gam, bet), and its xhat, in the plain
-// version's order (xhat = 0 where x = mean, as there).
+// dz of one element of channel (gam, bet), with mul = rstd * gam, and its
+// xhat: in the plain version's order (xhat = 0 where x = mean, as there) for
+// ORDER_KERNEL, through flax's site in x's dtype T otherwise.
+template <typename T, int ORDER>
 __device__ __forceinline__ float grad_z(float xv, float gv, float mean,
                                         float rstd, float gam, float bet,
-                                        float& xhat) {
+                                        float mul, float& xhat) {
   xhat = (xv - mean) * rstd;
-  const float z = fmaf(xhat, gam, bet);
-  const float s = rcp_approx(1.0f + ex2_approx(z * -1.44269504f));
-  return gv * (s * fmaf(z, 1.0f - s, 1.0f));
+  if constexpr (ORDER == ORDER_KERNEL) {
+    const float z = fmaf(xhat, gam, bet);
+    const float s = rcp_approx(1.0f + ex2_approx(z * -1.44269504f));
+    return gv * (s * fmaf(z, 1.0f - s, 1.0f));
+  } else {
+    const float y = round_to<T>(flax_norm_value(xv, mean, mul, bet));
+    const float s = jax_sigmoid<T>(y);
+    const float ds = round_to<T>(__fmul_rn(s, round_to<T>(__fsub_rn(1.0f, s))));
+    return round_to<T>(__fadd_rn(
+        round_to<T>(__fmul_rn(gv, s)),
+        round_to<T>(__fmul_rn(round_to<T>(__fmul_rn(gv, y)), ds))));
+  }
+}
+
+// dx of one element from its dz and xhat: one rounding (by the store), or
+// with ORDER_FLAX_BF16_PATH the centring and the statistics' branches
+// rounded to T each and summed.
+template <typename T, int ORDER>
+__device__ __forceinline__ float grad_x(float dz, float xhat, float gam,
+                                        float mul, float rstd, float m1,
+                                        float m2) {
+  if constexpr (ORDER == ORDER_FLAX_BF16_PATH) {
+    return __fadd_rn(round_to<T>(__fmul_rn(dz, mul)),
+                     round_to<T>(-fmaf(xhat, m2, m1) * rstd));
+  } else {
+    return fmaf(-xhat, m2, fmaf(dz, gam, -m1)) * rstd;
+  }
 }
 
 // The block's work in units of N elements: N = the 16-byte vector, or 1
@@ -137,7 +179,7 @@ __device__ __forceinline__ float grad_z(float xv, float gv, float mean,
 // memory, the second time mostly from L2), 0 nothing (N = 1 only).  grid:
 // (n * 32 * cluster) blocks; block b owns slice b % cluster of group
 // b / cluster = sample * 32 + g.
-template <typename T, int N, int STAGE>
+template <typename T, int N, int STAGE, int ORDER>
 __device__ __forceinline__ void backward(const Params& p, unsigned char* smem,
                                          uint64_t* bars, float* stats) {
   const int tid = threadIdx.x, nthreads = blockDim.x;
@@ -204,7 +246,7 @@ __device__ __forceinline__ void backward(const Params& p, unsigned char* smem,
     const int ch = cf + s;
     const int sb = max(lo_u, ch * upc) - lo_u;
     const int se = min(lo_u + units, (ch + 1) * upc) - lo_u;
-    const float gm = gam[ch], bt = bet[ch];
+    const float gm = gam[ch], bt = bet[ch], mul = __fmul_rn(rstd, gm);
     float av[N], bv[N];  // one sum per lane of the vector: N chains, not 1
 #pragma unroll
     for (int j = 0; j < N; ++j) av[j] = bv[j] = 0.0f;
@@ -217,7 +259,8 @@ __device__ __forceinline__ void backward(const Params& p, unsigned char* smem,
 #pragma unroll
       for (int j = 0; j < N; ++j) {
         float xhat;
-        const float dz = grad_z(xv[j], gv[j], mean, rstd, gm, bt, xhat);
+        const float dz =
+            grad_z<T, ORDER>(xv[j], gv[j], mean, rstd, gm, bt, mul, xhat);
         av[j] += dz;
         bv[j] = fmaf(dz, xhat, bv[j]);
       }
@@ -302,6 +345,7 @@ __device__ __forceinline__ void backward(const Params& p, unsigned char* smem,
   const float m1 = stats[0], m2 = stats[1];
   int ch = (lo_u + tid) / upc, next = (ch + 1) * upc - lo_u;
   float gm = gam[min(ch, cpg - 1)], bt = bet[min(ch, cpg - 1)];
+  float mul = __fmul_rn(rstd, gm);
   for (int i = tid; i < units; i += nthreads) {
     if (i >= next) {
       do {
@@ -310,6 +354,7 @@ __device__ __forceinline__ void backward(const Params& p, unsigned char* smem,
       } while (i >= next);
       gm = gam[ch];
       bt = bet[ch];
+      mul = __fmul_rn(rstd, gm);
     }
     float xv[N], gv[N];
     load_n<T, N>(xsrc + i * N, xv);
@@ -317,26 +362,27 @@ __device__ __forceinline__ void backward(const Params& p, unsigned char* smem,
 #pragma unroll
     for (int j = 0; j < N; ++j) {
       float xhat;
-      const float dz = grad_z(xv[j], gv[j], mean, rstd, gm, bt, xhat);
-      xv[j] = fmaf(-xhat, m2, fmaf(dz, gm, -m1)) * rstd;
+      const float dz =
+          grad_z<T, ORDER>(xv[j], gv[j], mean, rstd, gm, bt, mul, xhat);
+      xv[j] = grad_x<T, ORDER>(dz, xhat, gm, mul, rstd, m1, m2);
     }
     store_n<T, N>(dx + i * N, xv);
   }
   if (p.cluster > 1) cluster_wait();
 }
 
-template <typename T>
+template <typename T, int ORDER>
 __global__ void __launch_bounds__(MAX_THREADS)
     group_norm_silu_bwd_kernel(const Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ __align__(8) uint64_t bars[CHUNKS];
   __shared__ float stats[2];  // m1, m2
   if (p.staged == 2)
-    backward<T, Vec<T>::N, 2>(p, smem, bars, stats);
+    backward<T, Vec<T>::N, 2, ORDER>(p, smem, bars, stats);
   else if (p.staged == 1)
-    backward<T, Vec<T>::N, 1>(p, smem, bars, stats);
+    backward<T, Vec<T>::N, 1, ORDER>(p, smem, bars, stats);
   else
-    backward<T, 1, 0>(p, smem, bars, stats);
+    backward<T, 1, 0, ORDER>(p, smem, bars, stats);
 }
 
 // dbeta_c = sum_n A[n, c] and dgamma_c = sum_n B[n, c] from the (n, 2, c)
@@ -363,20 +409,51 @@ int dynamic_smem(int c, int stage_bytes) {
   return stage_bytes + channel_floats(c / GROUPS) * (int)sizeof(float);
 }
 
-// The two launches of one call on `stream`.
-template <typename T>
+// The two launches of one call on `stream`, the first in ORDER's order.
+template <typename T, int ORDER>
 cudaError_t launch(const Params& p, int threads, float* dgamma, float* dbeta,
                    cudaStream_t stream) {
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = launch_config(
       p.n * GROUPS * p.cluster, p.cluster, threads,
       dynamic_smem(p.c, p.stage_bytes), stream, &attr);
-  cudaError_t err = cudaLaunchKernelEx(&cfg, group_norm_silu_bwd_kernel<T>, p);
+  cudaError_t err =
+      cudaLaunchKernelEx(&cfg, group_norm_silu_bwd_kernel<T, ORDER>, p);
   if (err != cudaSuccess) return err;
   group_norm_silu_bwd_sum_kernel<<<(p.c + SUM_THREADS - 1) / SUM_THREADS,
                                    SUM_THREADS, 0, stream>>>(
       p.scratch, dgamma, dbeta, p.n, p.c);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_order(const Params& p, int threads, int order,
+                         float* dgamma, float* dbeta, cudaStream_t stream) {
+  if (order == ORDER_KERNEL)
+    return launch<T, ORDER_KERNEL>(p, threads, dgamma, dbeta, stream);
+  if (order == ORDER_FLAX)
+    return launch<T, ORDER_FLAX>(p, threads, dgamma, dbeta, stream);
+  if (order == ORDER_FLAX_BF16_PATH)
+    return launch<T, ORDER_FLAX_BF16_PATH>(p, threads, dgamma, dbeta, stream);
+  return cudaErrorInvalidValue;
+}
+
+// Every order's kernel set up; the clusters the card holds at once of the
+// one that holds fewest.
+template <typename T>
+cudaError_t prepare(int cluster, int threads, int bytes, int* max_clusters) {
+  int kinds[3] = {0, 0, 0};
+  cudaError_t err = prepare_kernel(group_norm_silu_bwd_kernel<T, ORDER_KERNEL>,
+                                   cluster, threads, bytes, &kinds[0]);
+  if (err == cudaSuccess)
+    err = prepare_kernel(group_norm_silu_bwd_kernel<T, ORDER_FLAX>, cluster,
+                         threads, bytes, &kinds[1]);
+  if (err == cudaSuccess)
+    err = prepare_kernel(group_norm_silu_bwd_kernel<T, ORDER_FLAX_BF16_PATH>,
+                         cluster, threads, bytes, &kinds[2]);
+  *max_clusters = kinds[0];
+  for (int k : kinds) *max_clusters = k < *max_clusters ? k : *max_clusters;
+  return err;
 }
 
 }  // namespace
@@ -387,19 +464,17 @@ const char* cuda_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// Set the kernel's attributes on the current device and count the clusters
-// of (cluster, threads, staging bytes) at c channels that it can hold at
-// once into *max_clusters.
+// Set the kernels' attributes on the current device and count the clusters
+// of (cluster, threads, staging bytes) at c channels that each can hold at
+// once into *max_clusters (the least of them).
 int group_norm_silu_backward_prepare(int dtype_code, int c, int cluster,
                                      int threads, int smem,
                                      int* max_clusters) {
   const int bytes = dynamic_smem(c, smem);
   if (dtype_code == 0)
-    return (int)prepare_kernel(group_norm_silu_bwd_kernel<float>, cluster,
-                               threads, bytes, max_clusters);
+    return (int)prepare<float>(cluster, threads, bytes, max_clusters);
   if (dtype_code == 1)
-    return (int)prepare_kernel(group_norm_silu_bwd_kernel<__nv_bfloat16>,
-                               cluster, threads, bytes, max_clusters);
+    return (int)prepare<__nv_bfloat16>(cluster, threads, bytes, max_clusters);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -420,6 +495,7 @@ struct Call {
   int n, c, hw;
   int cluster, slice_len, threads, smem;  // the wrapper's plan
   int dtype_code;        // 0: fp32, 1: bf16
+  int order;             // ORDER_KERNEL, ORDER_FLAX or ORDER_FLAX_BF16_PATH
 };
 
 // The call's two launches on a->stream.
@@ -451,9 +527,11 @@ int group_norm_silu_backward(const Call* a) {
   float* dbeta = (float*)a->dbeta;
   const cudaStream_t stream = (cudaStream_t)a->stream;
   if (a->dtype_code == 0)
-    return (int)launch<float>(p, a->threads, dgamma, dbeta, stream);
+    return (int)launch_order<float>(p, a->threads, a->order, dgamma, dbeta,
+                                    stream);
   if (a->dtype_code == 1)
-    return (int)launch<__nv_bfloat16>(p, a->threads, dgamma, dbeta, stream);
+    return (int)launch_order<__nv_bfloat16>(p, a->threads, a->order, dgamma,
+                                            dbeta, stream);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -26,13 +26,15 @@ How the norms compute is the option `norm_impl`:
   kernel in the JAX package) is `F.group_norm` in fp32.  `bf16_norm` and
   `pallas_norm` change nothing here.
 - "flax": the JAX package's own composition (`anoddpm_tpu/models/
-  unet.py:48-83`): flax's GroupNorm order in plain PyTorch (`flax_norm`),
-  rounded once to the activation dtype, then SiLU in that dtype, with
-  JAX's gradients; `bf16_norm` is `GroupNorm32(bf16_path=...)`, which
-  leaves the forward as it is and changes where the backward rounds.
-  With `pallas_norm`, a norm+SiLU site whose NHWC shape passes the TPU
-  kernel's gate (`ops.group_norm_silu.eligible`) calls K2 instead, as the
-  JAX package calls its Pallas kernel there.
+  unet.py:48-83`): flax's GroupNorm order (`flax_norm`), rounded once to
+  the activation dtype, then SiLU in that dtype, with JAX's gradients;
+  `bf16_norm` is `GroupNorm32(bf16_path=...)`, which leaves the forward as
+  it is and changes where the backward rounds.  A norm+SiLU site runs K2
+  and K2b in their flax order (`ops.group_norm_silu_flax`; the plain
+  composition on the CPU), the attention norm the composition in plain
+  PyTorch.  With `pallas_norm`, a norm+SiLU site whose NHWC shape passes
+  the TPU kernel's gate (`ops.group_norm_silu.eligible`) calls K2 in its
+  own order instead, as the JAX package calls its Pallas kernel there.
 """
 
 from __future__ import annotations
@@ -44,7 +46,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.group_norm_silu import GROUPS, eligible, group_norm_silu
+from ..ops.group_norm_silu import (_FlaxSite, _flax_site, eligible,
+                                   group_norm_silu, group_norm_silu_flax)
 
 # Per-resolution channel-multiplier defaults (reference UNet.py:239-251).
 DEFAULT_CHANNEL_MULTS = {
@@ -148,78 +151,17 @@ class Dense(nn.Module):
                         self.bias.to(self.dtype))
 
 
-class _JaxSiLU(torch.autograd.Function):
-    """x * logistic(x) as the JAX package computes it on the CPU: in fp32
-    `torch.sigmoid`; in a narrower dtype 1 / (1 + exp(-x)), each op rounded
-    to that dtype, as XLA expands a bf16 logistic.  The gradient is JAX's
-    for the product with its logistic rule, g * s + (g * x) * (s * (1 - s)),
-    each op in x's dtype (torch's autograd of the expansion is another
-    chain of roundings)."""
-
-    @staticmethod
-    def forward(ctx, x):
-        s = (torch.sigmoid(x) if x.dtype in (torch.float32, torch.float64)
-             else 1 / (1 + torch.exp(-x)))
-        ctx.save_for_backward(x, s)
-        return x * s
-
-    @staticmethod
-    def backward(ctx, g):
-        x, s = ctx.saved_tensors
-        return g * s + (g * x) * (s * (1 - s))
-
-
-def _flax_site(x, gamma, beta, bf16_path: bool, silu: bool, eps: float = 1e-5):
-    """flax's GroupNorm(32) on NCHW x (`normalization._compute_stats` with
-    the fast variance, then `_normalize`): fp32 mean and E[x^2], var =
-    max(E[x^2] - mean^2, 0), y = (x - mean) * (rsqrt(var + eps) * gamma) +
-    beta in fp32, rounded once to x's dtype; then `_JaxSiLU` when `silu`.
-    With `bf16_path` the statistics and the centring each take their own
-    fp32 copy of x, as flax's dtype promotion does, so that autograd rounds
-    their gradients to x's dtype one by one and sums them there, as JAX
-    transposes the two converts; without it one copy serves both and the
-    gradient rounds once.  The forward is the same either way."""
-    n, c = x.shape[:2]
-    xs = x.float()
-    xc = x.float() if bf16_path else xs
-    xg = xs.reshape(n, GROUPS, -1)
-    mean = xg.mean(dim=-1)
-    var = torch.clamp((xg * xg).mean(dim=-1) - mean * mean, min=0.0)
-    cg = c // GROUPS
-    bshape = (n, c) + (1,) * (x.dim() - 2)
-    mul = torch.rsqrt(var + eps).repeat_interleave(cg, dim=1) * gamma
-    y = ((xc - mean.repeat_interleave(cg, dim=1).view(bshape)) * mul.view(bshape)
-         + beta.view((1, c) + (1,) * (x.dim() - 2)))
-    y = y.to(x.dtype)
-    return _JaxSiLU.apply(y) if silu else y
-
-
-class _FlaxSite(torch.autograd.Function):
-    """`_flax_site` under autograd, keeping only its inputs (K2's memory, not
-    the composition's fp32 temporaries): the backward runs the composition
-    again under autograd and differentiates it, so the gradient is the
-    composition's own."""
-
-    @staticmethod
-    def forward(ctx, x, gamma, beta, bf16_path, silu):
-        ctx.save_for_backward(x, gamma, beta)
-        ctx.options = (bf16_path, silu)
-        return _flax_site(x, gamma, beta, bf16_path, silu)
-
-    @staticmethod
-    def backward(ctx, grad):
-        with torch.enable_grad():
-            inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
-            out = _flax_site(*inputs, *ctx.options)
-            grads = torch.autograd.grad(out, inputs, grad)
-        return (*grads, None, None)
-
-
 def flax_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
               bf16_path: bool, silu: bool) -> torch.Tensor:
     """The JAX package's `GroupNorm32(bf16_path)` on NCHW x in x's dtype,
-    followed by its SiLU when `silu` (`_flax_site`); plain PyTorch, the same
-    ops on the card and on the CPU."""
+    followed by its SiLU when `silu`.  With SiLU, K2 in the flax order
+    (`group_norm_silu_flax`: the kernel on the card, `_flax_site` on the
+    CPU); without, `_flax_site` in plain PyTorch on either (the attention
+    norm, outside any kernel in the JAX package too).  On the meta device,
+    which carries shapes and no values (the FLOP counter's forward), both
+    are `_flax_site`."""
+    if silu and not x.is_meta:
+        return group_norm_silu_flax(x, gamma, beta, bf16_path)
     if torch.is_grad_enabled() and (x.requires_grad or gamma.requires_grad
                                     or beta.requires_grad):
         return _FlaxSite.apply(x, gamma, beta, bf16_path, silu)
@@ -252,7 +194,8 @@ class GroupNorm32(nn.Module):
 class NormSiLU(GroupNorm32):
     """GroupNorm(32) + SiLU.  Kernel K2 under `norm_impl="kernel"`; under
     "flax", K2 where `pallas_norm` is set and the NHWC shape passes
-    `eligible` (the JAX package's Pallas kernel), else `flax_norm`."""
+    `eligible` (the JAX package's Pallas kernel), else K2 in the flax order
+    (`flax_norm`)."""
 
     def __init__(self, channels: int, norm_impl: str = "kernel",
                  bf16_norm: bool = False, pallas_norm: bool = False):
@@ -260,7 +203,7 @@ class NormSiLU(GroupNorm32):
         self.pallas_norm = pallas_norm
 
     def uses_kernel(self, x: torch.Tensor) -> bool:
-        """Whether a call on x goes through K2."""
+        """Whether a call on x goes through K2 in the TPU kernel's order."""
         n, c, h, w = x.shape
         return self.norm_impl == "kernel" or (
             self.pallas_norm and eligible((n, h, w, c), x.dtype))

@@ -18,6 +18,14 @@ output); its backward is kernel K2b (`csrc/group_norm_silu_backward.cu`,
 `group_norm_silu_backward`) on the card and `_plain_backward`, the closed
 form of `pallas_norm._bwd`, on the CPU.  Without autograd the call stays
 one K2 launch without statistics.
+
+`order="flax"` computes the site as the JAX package's UNet does by default
+(`anoddpm_tpu/models/unet.py:48-83`, flax's GroupNorm32 then `nn.silu`,
+plain XLA there): the norm rounded to x's dtype, then SiLU op by op in that
+dtype, with JAX's gradient; `bf16_path` is `GroupNorm32(bf16_path=...)`,
+which changes only where the backward rounds.  On the card it is a mode of
+the same kernels, K2 and K2b, counted apart (`flax_launches`); on the CPU
+its plain version is `_flax_site` and its autograd (`group_norm_silu_flax`).
 """
 
 from __future__ import annotations
@@ -34,6 +42,12 @@ from . import _build
 
 GROUPS = 32
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# The site's orders: K2's (the TPU kernel's) and flax's, and the kernels'
+# codes for them (csrc: ORDER_*; the backward's flax order with bf16_path
+# is its own code).
+ORDERS = ("kernel", "flax")
+_BACKWARD_ORDER_CODES = {("kernel", False): 0, ("flax", False): 1,
+                         ("flax", True): 2}
 # Layout limits (H100): a block stages at most 96 KB, so that two fit on an
 # SM beside each other, and aims at 64 KB (three); a cluster holds at most
 # 16 blocks (above 8 is non-portable); 256 threads a block.
@@ -165,13 +179,106 @@ def _plain_backward(x: torch.Tensor, grad_out: torch.Tensor,
     return dx.to(x.dtype), dgamma, dbeta
 
 
+class _JaxSiLU(torch.autograd.Function):
+    """x * logistic(x) as the JAX package computes it on the CPU: in fp32
+    `torch.sigmoid`; in a narrower dtype 1 / (1 + exp(-x)), each op rounded
+    to that dtype, as XLA expands a bf16 logistic.  The gradient is JAX's
+    for the product with its logistic rule, g * s + (g * x) * (s * (1 - s)),
+    each op in x's dtype (torch's autograd of the expansion is another
+    chain of roundings)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        s = (torch.sigmoid(x) if x.dtype in (torch.float32, torch.float64)
+             else 1 / (1 + torch.exp(-x)))
+        ctx.save_for_backward(x, s)
+        return x * s
+
+    @staticmethod
+    def backward(ctx, g):
+        x, s = ctx.saved_tensors
+        return g * s + (g * x) * (s * (1 - s))
+
+
+def _flax_site_with_stats(x, gamma, beta, bf16_path: bool, silu: bool,
+                          eps: float = 1e-5):
+    """`_flax_site`, and its fp32 (N, 32) mean and rsqrt(var + eps)."""
+    n, c = x.shape[:2]
+    xs = x.float()
+    xc = x.float() if bf16_path else xs
+    xg = xs.reshape(n, GROUPS, -1)
+    mean = xg.mean(dim=-1)
+    var = torch.clamp((xg * xg).mean(dim=-1) - mean * mean, min=0.0)
+    rstd = torch.rsqrt(var + eps)
+    cg = c // GROUPS
+    bshape = (n, c) + (1,) * (x.dim() - 2)
+    mul = rstd.repeat_interleave(cg, dim=1) * gamma
+    y = ((xc - mean.repeat_interleave(cg, dim=1).view(bshape)) * mul.view(bshape)
+         + beta.view((1, c) + (1,) * (x.dim() - 2)))
+    y = y.to(x.dtype)
+    return (_JaxSiLU.apply(y) if silu else y), mean, rstd
+
+
+def _flax_site(x, gamma, beta, bf16_path: bool, silu: bool, eps: float = 1e-5):
+    """flax's GroupNorm(32) on NCHW x (`normalization._compute_stats` with
+    the fast variance, then `_normalize`): fp32 mean and E[x^2], var =
+    max(E[x^2] - mean^2, 0), y = (x - mean) * (rsqrt(var + eps) * gamma) +
+    beta in fp32, rounded once to x's dtype; then `_JaxSiLU` when `silu`.
+    With `bf16_path` the statistics and the centring each take their own
+    fp32 copy of x, as flax's dtype promotion does, so that autograd rounds
+    their gradients to x's dtype one by one and sums them there, as JAX
+    transposes the two converts; without it one copy serves both and the
+    gradient rounds once.  The forward is the same either way.  The plain
+    version of the flax order."""
+    return _flax_site_with_stats(x, gamma, beta, bf16_path, silu, eps)[0]
+
+
+def _flax_site_grads(x, gamma, beta, grad, bf16_path: bool, silu: bool,
+                     eps: float = 1e-5):
+    """(dx, dgamma, dbeta) of `_flax_site` for the output gradient `grad`:
+    the composition run again under autograd and differentiated."""
+    with torch.enable_grad():
+        inputs = [t.detach().requires_grad_() for t in (x, gamma, beta)]
+        out = _flax_site(*inputs, bf16_path, silu, eps)
+        return torch.autograd.grad(out, inputs, grad)
+
+
+class _FlaxSite(torch.autograd.Function):
+    """`_flax_site` under autograd, keeping only its inputs (K2's memory, not
+    the composition's fp32 temporaries): the backward runs the composition
+    again under autograd and differentiates it, so the gradient is the
+    composition's own."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, bf16_path, silu, eps=1e-5):
+        ctx.save_for_backward(x, gamma, beta)
+        ctx.options = (bf16_path, silu, eps)
+        return _flax_site(x, gamma, beta, bf16_path, silu, eps)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (*_flax_site_grads(*ctx.saved_tensors, grad, *ctx.options),
+                None, None, None)
+
+
+def _plain_flax(x, gamma, beta, eps):
+    """Plain PyTorch version of K2's flax order: (out, mean, rstd)."""
+    return _flax_site_with_stats(x, gamma, beta, False, True, eps)
+
+
+def _plain_flax_backward(x, grad_out, gamma, beta, bf16_path, eps):
+    """Plain PyTorch version of K2b's flax order: (dx in x's dtype, dgamma,
+    dbeta in gamma's dtype), the autograd of `_flax_site`."""
+    return _flax_site_grads(x, gamma, beta, grad_out, bf16_path, True, eps)
+
+
 @functools.cache
 def _kernel():
     """The built library and its C entries, with argument types declared."""
     lib = _build.load("group_norm_silu")
     fn = lib.group_norm_silu_forward
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     prepare = lib.group_norm_silu_prepare
     prepare.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
@@ -202,7 +309,11 @@ def _launch_args(shape: torch.Size, dtype: torch.dtype, device: int):
     return (n, c, hw) + tuple(p), code
 
 
-def _check(x, gamma, beta):
+def _check(x, gamma, beta, order="kernel", bf16_path=False):
+    if order not in ORDERS:
+        raise ValueError(f"order must be one of {ORDERS}, got {order!r}")
+    if bf16_path and order != "flax":
+        raise ValueError("bf16_path applies to the flax order only")
     if x.dim() < 2 or x.shape[1] % GROUPS:
         raise ValueError(f"x must be (N, C, ...) with C divisible by {GROUPS}, "
                          f"got {tuple(x.shape)}")
@@ -221,9 +332,10 @@ def _fp32_on(t: torch.Tensor, device: int) -> torch.Tensor:
                 ).contiguous()
 
 
-def _forward(x, gamma, beta, eps, with_stats):
-    """Kernel K2 on x's card: (out, stats), stats the (2, N, 32) fp32 mean
-    and rstd when `with_stats`, else None (the kernel then skips them)."""
+def _forward(x, gamma, beta, eps, with_stats, order):
+    """Kernel K2 in `order` on x's card: (out, stats), stats the (2, N, 32)
+    fp32 mean and rstd when `with_stats`, else None (the kernel then skips
+    them)."""
     if not x.is_cuda:
         raise ValueError(f"group_norm_silu: unsupported device {x.device}")
     if not x.is_contiguous():
@@ -237,20 +349,26 @@ def _forward(x, gamma, beta, eps, with_stats):
     lib, fn = _kernel()
     status = fn(x.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
                 out.data_ptr(), None if stats is None else stats.data_ptr(),
-                *dims, eps, code, torch._C._cuda_getCurrentRawStream(device))
+                *dims, eps, code, ORDERS.index(order),
+                torch._C._cuda_getCurrentRawStream(device))
     _build.check(lib, status, "group_norm_silu")
-    group_norm_silu.launches += 1
+    if order == "kernel":
+        group_norm_silu.launches += 1
+    else:
+        group_norm_silu.flax_launches += 1
     return out, stats
 
 
 def group_norm_silu_with_stats(x: torch.Tensor, gamma: torch.Tensor,
-                               beta: torch.Tensor, eps: float = 1e-5):
-    """silu(group_norm_32(x) * gamma + beta) in x's dtype, plus the fp32
-    per-(sample, group) mean and rstd, each (N, 32)."""
-    _check(x, gamma, beta)
+                               beta: torch.Tensor, eps: float = 1e-5,
+                               order: str = "kernel"):
+    """silu(group_norm_32(x) * gamma + beta) in x's dtype, in `order`, plus
+    the fp32 per-(sample, group) mean and rstd, each (N, 32)."""
+    _check(x, gamma, beta, order)
     if x.is_cpu:
-        return _plain(x, gamma, beta, eps)
-    out, stats = _forward(x, gamma, beta, eps, True)
+        return (_plain if order == "kernel" else _plain_flax)(x, gamma, beta,
+                                                              eps)
+    out, stats = _forward(x, gamma, beta, eps, True, order)
     return out, stats[0], stats[1]
 
 
@@ -317,10 +435,12 @@ def _backward_kernel():
 
 
 # csrc/group_norm_silu_backward.cu `Call`: 11 pointers (x, grad_out, gamma,
-# beta, mean, rstd, dx, dgamma, dbeta, scratch, stream), then 8 ints (n, c,
-# hw, cluster, slice_len, threads, smem, dtype code), in native layout.
+# beta, mean, rstd, dx, dgamma, dbeta, scratch, stream), then 9 ints (n, c,
+# hw, cluster, slice_len, threads, smem, dtype code; the order's code), in
+# native layout.
 _CALL_POINTERS = struct.Struct("11P")
 _CALL_INTS = struct.Struct("8i")
+_CALL_ORDER = struct.Struct("i")
 
 
 @functools.lru_cache(maxsize=None)
@@ -347,13 +467,20 @@ def _backward_launch_args(shape: torch.Size, dtype: torch.dtype, device: int):
 
 def group_norm_silu_backward(x: torch.Tensor, grad_out: torch.Tensor,
                              gamma: torch.Tensor, beta: torch.Tensor,
-                             mean: torch.Tensor, rstd: torch.Tensor):
-    """The gradient of `group_norm_silu` at x for the output gradient
-    `grad_out`, from the forward's (N, 32) mean and rstd: (dx in x's dtype,
-    dgamma, dbeta in fp32).  Kernel K2b for x on the card (NCHW-contiguous
-    x and grad_out of x's dtype), the plain version for x on the CPU."""
-    _check(x, gamma, beta)
+                             mean: torch.Tensor, rstd: torch.Tensor,
+                             order: str = "kernel", bf16_path: bool = False,
+                             eps: float = 1e-5):
+    """The gradient of `group_norm_silu` in `order` (with `bf16_path`) at x
+    for the output gradient `grad_out`, from the forward's (N, 32) mean and
+    rstd: (dx in x's dtype, dgamma, dbeta in fp32).  Kernel K2b for x on the
+    card (NCHW-contiguous x and grad_out of x's dtype), the plain version
+    for x on the CPU (in the flax order the composition's autograd, which
+    recomputes the statistics with `eps`)."""
+    _check(x, gamma, beta, order, bf16_path)
     if x.is_cpu:
+        if order == "flax":
+            return _plain_flax_backward(x, grad_out, gamma, beta, bf16_path,
+                                        eps)
         return _plain_backward(x, grad_out, gamma, beta, mean, rstd)
     if not x.is_cuda:
         raise ValueError(f"group_norm_silu_backward: unsupported device "
@@ -380,48 +507,76 @@ def group_norm_silu_backward(x: torch.Tensor, grad_out: torch.Tensor,
         x.data_ptr(), grad_out.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
         mean.data_ptr(), rstd.data_ptr(), dx.data_ptr(), dgamma.data_ptr(),
         dbeta.data_ptr(), scratch.data_ptr(),
-        torch._C._cuda_getCurrentRawStream(device)) + ints)
+        torch._C._cuda_getCurrentRawStream(device)) + ints
+        + _CALL_ORDER.pack(_BACKWARD_ORDER_CODES[order, bf16_path]))
     _build.check(lib, status, "group_norm_silu_backward")
-    group_norm_silu_backward.launches += BACKWARD_LAUNCHES
+    if order == "kernel":
+        group_norm_silu_backward.launches += BACKWARD_LAUNCHES
+    else:
+        group_norm_silu_backward.flax_launches += BACKWARD_LAUNCHES
     return dx, dgamma, dbeta
 
 
 group_norm_silu_backward.launches = 0
+group_norm_silu_backward.flax_launches = 0
 
 
 class GroupNormSiLU(torch.autograd.Function):
     """`group_norm_silu` under autograd (the JAX custom_vjp `_fwd`/`_bwd`):
-    the forward keeps x, gamma, beta, mean and rstd; the backward is K2b."""
+    the forward keeps x, gamma, beta, mean and rstd; the backward is K2b, in
+    the forward's order."""
 
     @staticmethod
-    def forward(ctx, x, gamma, beta, eps):
-        out, mean, rstd = group_norm_silu_with_stats(x, gamma, beta, eps)
+    def forward(ctx, x, gamma, beta, eps, order="kernel", bf16_path=False):
+        out, mean, rstd = group_norm_silu_with_stats(x, gamma, beta, eps,
+                                                     order)
         ctx.save_for_backward(x, gamma, beta, mean, rstd)
+        ctx.options = (order, bf16_path, eps)
         return out
 
     @staticmethod
     def backward(ctx, grad_out):
         x, gamma, beta, mean, rstd = ctx.saved_tensors
         dx, dgamma, dbeta = group_norm_silu_backward(
-            x, grad_out.contiguous(), gamma, beta, mean, rstd)
+            x, grad_out.contiguous(), gamma, beta, mean, rstd, *ctx.options)
         need = ctx.needs_input_grad
         return (dx if need[0] else None,
                 dgamma.to(gamma.dtype) if need[1] else None,
-                dbeta.to(beta.dtype) if need[2] else None, None)
+                dbeta.to(beta.dtype) if need[2] else None, None, None, None)
 
 
 def group_norm_silu(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
-                    eps: float = 1e-5) -> torch.Tensor:
+                    eps: float = 1e-5, order: str = "kernel",
+                    bf16_path: bool = False) -> torch.Tensor:
     """silu(group_norm_32(x) * gamma + beta) for NCHW x (fp32 or bf16), with
-    fp32 statistics and the output in x's dtype.  Differentiable: under
-    autograd it goes through `GroupNormSiLU`."""
-    _check(x, gamma, beta)
+    fp32 statistics and the output in x's dtype, in `order`: "kernel" (the
+    TPU kernel's: SiLU in fp32, rounded once) or "flax" (the JAX UNet's
+    default: the norm rounded, then SiLU op by op in x's dtype; `bf16_path`
+    as flax's GroupNorm32's).  Differentiable: under autograd it goes
+    through `GroupNormSiLU`."""
+    _check(x, gamma, beta, order, bf16_path)
     if torch.is_grad_enabled() and (x.requires_grad or gamma.requires_grad
                                     or beta.requires_grad):
-        return GroupNormSiLU.apply(x, gamma, beta, eps)
+        if x.is_cpu and order == "flax":
+            # the plain composition's own Function: through it a whole
+            # UNet's gradients keep the bits they had before the order was
+            # a kernel mode (autograd sums a tensor's gradients in an order
+            # that follows the Functions it passed)
+            return _FlaxSite.apply(x, gamma, beta, bf16_path, True, eps)
+        return GroupNormSiLU.apply(x, gamma, beta, eps, order, bf16_path)
     if x.is_cpu:
-        return _plain(x, gamma, beta, eps)[0]
-    return _forward(x, gamma, beta, eps, False)[0]
+        return (_plain if order == "kernel" else _plain_flax)(x, gamma, beta,
+                                                              eps)[0]
+    return _forward(x, gamma, beta, eps, False, order)[0]
 
 
 group_norm_silu.launches = 0
+group_norm_silu.flax_launches = 0
+
+
+def group_norm_silu_flax(x: torch.Tensor, gamma: torch.Tensor,
+                         beta: torch.Tensor, bf16_path: bool = False,
+                         eps: float = 1e-5) -> torch.Tensor:
+    """`group_norm_silu` in the flax order: the JAX package's
+    `nn.silu(GroupNorm32(bf16_path)(x))` on NCHW x."""
+    return group_norm_silu(x, gamma, beta, eps, "flax", bf16_path)

@@ -110,12 +110,16 @@ PyTorch built for CUDA.  Phases, each of which fails the run when it fails:
    lambda 50, batch 4; three train steps of the paper config through
    `bench.train_probe`), the UNet's FLOP count on the card against the
    meta device's, `norm_impl="flax"` at args256syn128's and s2d64's
-   widths forward and backward (no K2 without `pallas_norm`, K2 and K2b
-   exactly at the sites that pass the Pallas gate with it), the
-   flax-order site on the card against the CPU at every (C, H, W, dtype)
-   of both models' sites, ms per forward and per train step of the three
-   norm paths at s2d64, and `campaigns.substep_probe` cut to 1 epoch (and
-   epoch 0) of 8 iterations at 4 and 8 substeps, each with exact launches.
+   widths forward and backward (K2 and K2b in their flax order at every
+   site without `pallas_norm`; with it in their own order exactly at the
+   sites that pass the Pallas gate, the flax order at the rest; the two
+   orders counted apart), the flax order of K2 and K2b against the plain
+   composition on the CPU at every (C, H, W, dtype) of both models' sites
+   with `bf16_path` off and on, its device-only times per forward and per
+   train step at both configs beside its plain composition's and its
+   bound, ms per forward and per train step of the three norm paths at
+   s2d64, and `campaigns.substep_probe` cut to 1 epoch (and epoch 0) of 8
+   iterations at 4 and 8 substeps, each with exact launches.
 
 From phase 13 on, every (shape, dtype) that K2 and K2b launch at is
 recorded, and after each phase K2 and K2b are held against their plain
@@ -132,6 +136,7 @@ CUDA is unavailable.
 """
 
 import contextlib
+import functools
 import io
 import json
 import math
@@ -679,12 +684,21 @@ def check_small_chain():
 
 
 def torch_launches():
-    """(K1, K2, K2b) launch counts."""
+    """(K1, K2, K2b, K2 in the flax order, K2b in the flax order) launch
+    counts; a path that runs K2 and K2b in their own order launches (k1,
+    k2, k2b, 0, 0) (`own_order`)."""
     from anoddpm_torch.ops.group_norm_silu import (group_norm_silu,
                                                    group_norm_silu_backward)
     from anoddpm_torch.ops.simplex import batched_fractal3_fixed_t
     return (batched_fractal3_fixed_t.launches, group_norm_silu.launches,
-            group_norm_silu_backward.launches)
+            group_norm_silu_backward.launches, group_norm_silu.flax_launches,
+            group_norm_silu_backward.flax_launches)
+
+
+def own_order(k1, k2, k2b):
+    """The launches of a path with K1, K2 and K2b in their own order and
+    nothing in the flax order, as `torch_launches` counts them."""
+    return (k1, k2, k2b, 0, 0)
 
 
 def reset_launches():
@@ -694,6 +708,8 @@ def reset_launches():
     batched_fractal3_fixed_t.launches = 0
     group_norm_silu.launches = 0
     group_norm_silu_backward.launches = 0
+    group_norm_silu.flax_launches = 0
+    group_norm_silu_backward.flax_launches = 0
 
 
 def small_unet():
@@ -751,9 +767,9 @@ def check_small_train():
             counts = torch_launches()
             m = step(state, batch.to(dev), torch.Generator(dev), t=t.to(dev))
             if dev.type == "cuda":
-                k1, k2, k2b = (a - b for a, b in zip(torch_launches(), counts))
-                require((k1, k2, k2b) == (0, sites, sites * BACKWARD_LAUNCHES),
-                        f"small train step launched K1 {k1}, K2 {k2}, K2b {k2b}")
+                got = tuple(a - b for a, b in zip(torch_launches(), counts))
+                require(got == own_order(0, sites, sites * BACKWARD_LAUNCHES),
+                        f"small train step launched {got}")
             out[dev.type] = (float(m["loss"]), float(m["grad_norm"]),
                              [(p.detach() - b).cpu() for p, b in
                               zip(model.parameters(), before)],
@@ -834,7 +850,7 @@ def main_path(model, args, k2_per_forward):
             token=CONFIG, root_dir=root, max_volumes=VOLUMES, device=DEVICE)
         torch.cuda.synchronize()
         wall = time.time() - t0
-        k1, k2, k2b = torch_launches()
+        k1, k2, k2b, *flax = torch_launches()
         with open(os.path.join(root, "metrics", f"args{CONFIG}.csv")) as f:
             csv = f.read().strip()
     log(f"detection path: {VOLUMES} volumes x {BATCH} slices, lambda {LAMBDA}: "
@@ -844,6 +860,7 @@ def main_path(model, args, k2_per_forward):
     require(k1 == VOLUMES * (LAMBDA + 1), f"K1 launched {k1} times")
     require(k2 == VOLUMES * k2_per_forward * LAMBDA, f"K2 launched {k2} times")
     require(k2b == 0, f"K2b launched {k2b} times without autograd")
+    require(flax == [0, 0], f"the flax order launched {flax} times")
     require(all(math.isfinite(summary[k]) for k in detect.METRIC_NAMES),
             f"non-finite detection metrics: {summary}")
     # the steady rate: one more volume group on the warm model
@@ -862,7 +879,7 @@ def main_path(model, args, k2_per_forward):
         f"{group_s / LAMBDA * 1e3:.3f} ms per reverse step; AUC "
         f"{sum(out['auc']) / slices:.4f}; peak memory of the main path "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    return k1, k2, k2b
+    return own_order(k1, k2, k2b)
 
 
 def probe_writers():
@@ -1003,7 +1020,7 @@ def ddim_path(model, args, k2_per_forward):
     sched = schedule_from_args(args).to(DEVICE)
     sampler = sampler_from_args(args)
     sample = anomalous_dataset_from_args(ROOT, args)[0]
-    total = [0, 0, 0]
+    total = [0] * 5
     for steps, eta in DDIM_PROTOCOLS:
         dargs = defaultdict_from_json({**args, "sampler": "ddim",
                                        "ddim_steps": steps, "ddim_eta": eta})
@@ -1014,7 +1031,7 @@ def ddim_path(model, args, k2_per_forward):
                 device=DEVICE)
             torch.cuda.synchronize()
             counts = torch_launches()
-        want = (1 + (steps if eta > 0 else 0), k2_per_forward * steps, 0)
+        want = own_order(1 + (steps if eta > 0 else 0), k2_per_forward * steps, 0)
         log(f"DDIM-{steps} eta={eta:g}: launches K1 {counts[0]}, K2 {counts[1]}, "
             f"K2b {counts[2]} (expected {want}); AUC {summary['auc']:.4f}")
         require(tuple(counts) == want, f"DDIM-{steps}: launches {counts} != {want}")
@@ -1073,7 +1090,7 @@ def graph_path(model, args, k2_per_forward):
                                "synthetic-anomalous-00000.csv")
         with open(vol_csv) as f:
             lines = f.read().splitlines()
-    want = (1 + max_t, k2_per_forward * max_t, 0)
+    want = own_order(1 + max_t, k2_per_forward * max_t, 0)
     log(f"graph: {len(GRAPH_LAMBDAS)} lambdas at batch {batch}, {wall:.2f} s for "
         f"the call; launches K1 {counts[0]}, K2 {counts[1]}, K2b {counts[2]} "
         f"(expected {want}); peak dice {max(r['dice'] for r in rows):.4f}")
@@ -1124,7 +1141,7 @@ def roc_path(root, k2_per_forward):
     counts = torch_launches()
     with open(os.path.join(root, "metrics", "roc-comparison.csv")) as f:
         header = f.readline().strip()
-    want = (1 + LAMBDA, k2_per_forward * LAMBDA, 0)
+    want = own_order(1 + LAMBDA, k2_per_forward * LAMBDA, 0)
     log(f"roc with the context-encoder curve ({CE_STEPS} CE steps): "
         f"{time.time() - t0:.2f} s, header {header!r}; launches K1 "
         f"{counts[0]}, K2 {counts[1]}, K2b {counts[2]} (expected {want}: the "
@@ -1215,8 +1232,8 @@ def small_suite(writers):
         f"files, the JAX package's names ({len(want)} fixed, validation's per "
         f"slice); videos {videos_as}; launches K1 "
         f"{counts[0]}, K2 {counts[1]}, K2b {counts[2]}")
-    require(counts[0] > 0 and counts[1] > 0 and counts[2] > 0,
-            f"small suite: launches {counts}")
+    require(counts[0] > 0 and counts[1] > 0 and counts[2] > 0
+            and not any(counts[3:]), f"small suite: launches {counts}")
     return list(counts)
 
 
@@ -1388,7 +1405,8 @@ def mri_path(card):
         parts["train.train, VLB sweep"] = float(sweep.group(1))
         sites = sum(isinstance(m, NormSiLU) for m in state.model.modules())
         got = torch_launches()
-        want = (steps, sites * (steps + sweep_t), sites * BACKWARD_LAUNCHES * steps)
+        want = own_order(steps, sites * (steps + sweep_t),
+                         sites * BACKWARD_LAUNCHES * steps)
         log(f"MRI train.train args{MRI_CONFIG} (batch {targs['Batch_Size']}, "
             f"{targs['compute_dtype']}, {targs['noise_fn']} noise, cut {MRI_CUTS}, "
             f"skip_test_eval): {steps} steps and the {sweep_t}-forward VLB "
@@ -1413,9 +1431,9 @@ def mri_path(card):
         ds = dataset_from_args(root, targs)
         batch = to_nchw(np.stack([ds[0]["image"]])).to(DEVICE)
         windows = {}
-        counts["mri_noise_windows"] = [0, 0, 0]
-        want = (STEADY_STEPS, sites * STEADY_STEPS,
-                sites * BACKWARD_LAUNCHES * STEADY_STEPS)
+        counts["mri_noise_windows"] = [0] * 5
+        want = own_order(STEADY_STEPS, sites * STEADY_STEPS,
+                         sites * BACKWARD_LAUNCHES * STEADY_STEPS)
         for kind in NOISE_KINDS:
             t0 = time.time()
             ms, got = noise_window(state, batch, sched, targs, kind)
@@ -1444,7 +1462,7 @@ def mri_path(card):
         log(f"MRI detection: volume 17904, 4 slices, lambda {LAMBDA} DDPM: "
             f"{wall:.2f} s including checkpoint load; launches K1 {got[0]}, "
             f"K2 {got[1]}, K2b {got[2]}; csv {csv!r}")
-        require(tuple(got) == (LAMBDA + 1, sites * LAMBDA, 0),
+        require(tuple(got) == own_order(LAMBDA + 1, sites * LAMBDA, 0),
                 f"MRI detection: launches {got}")
         require(all(math.isfinite(summary[k]) for k in detect.METRIC_NAMES),
                 f"MRI detection metrics {summary}")
@@ -1598,7 +1616,7 @@ def texture_passes(sites_of):
     from anoddpm_torch.models.unet import UNet
     from anoddpm_torch.ops.noise import sampler_from_args
     from anoddpm_torch.schedule import schedule_from_args
-    counts = [0, 0, 0]
+    counts = [0] * 5
     lam = min(LAMBDA, SMALL_T)
     with tempfile.TemporaryDirectory() as root:
         texture_fixtures(root)
@@ -1624,7 +1642,7 @@ def texture_passes(sites_of):
                 require(recon.shape == (1, 32, 32, 3), f"leather recon {recon.shape}")
                 summary = {k: float(np.mean(v)) for k, v in out.items()}
             got = torch_launches()
-            want = (lam + 1, sites_of(model) * lam, 0)
+            want = own_order(lam + 1, sites_of(model) * lam, 0)
             log(f"{name} detection pass (32^2, {channels} channel(s), lambda {lam}): "
                 f"AUC {summary['auc']:.4f}; launches K1 {got[0]}, K2 {got[1]}, "
                 f"K2b {got[2]}")
@@ -1668,8 +1686,8 @@ def train_path(args, k2_per_forward, card, root):
         f"RESUME_RECENT has one to read")
 
     def expect(counts, n_steps, sweeps, what):
-        want = (n_steps, k2_per_forward * (n_steps + sweeps * sweep_t),
-                k2_per_forward * BACKWARD_LAUNCHES * n_steps)
+        want = own_order(n_steps, k2_per_forward * (n_steps + sweeps * sweep_t),
+                         k2_per_forward * BACKWARD_LAUNCHES * n_steps)
         log(f"{what}: launches K1 {counts[0]}, K2 {counts[1]}, K2b {counts[2]} "
             f"(expected {want}: per step K1 1, K2 {k2_per_forward}, K2b "
             f"{k2_per_forward} x {BACKWARD_LAUNCHES}; K2 {k2_per_forward} per "
@@ -1981,8 +1999,8 @@ def ddp_path(args, k2_per_forward, mesh, card):
         for _ in range(3):
             step(state, batch, gen)
     times, counts = {k: [] for k in steps}, None
-    want_counts = [STEADY_STEPS, STEADY_STEPS * k2_per_forward,
-                   STEADY_STEPS * k2_per_forward * BACKWARD_LAUNCHES]
+    want_counts = list(own_order(STEADY_STEPS, STEADY_STEPS * k2_per_forward,
+                                 STEADY_STEPS * k2_per_forward * BACKWARD_LAUNCHES))
     for name in ("plain", "ddp", "ddp_copy", "ddp_copy", "ddp", "plain"):
         torch.cuda.synchronize()
         before = torch_launches()
@@ -2062,7 +2080,7 @@ def remat_path(args, k2_per_forward, card):
                          f"remat {policy} vs none (32^2)")
     state, batch, step_of = full_width_state(args)
     gen = torch.Generator(device=DEVICE).manual_seed(9)
-    total = [0, 0, 0]
+    total = [0] * 5
     for policy in REMAT_POLICIES:
         step = step_of(remat=policy)
         for _ in range(2):
@@ -2078,8 +2096,8 @@ def remat_path(args, k2_per_forward, card):
         counts = [a - b for a, b in zip(torch_launches(), before)]
         total = [a + b for a, b in zip(total, counts)]
         per = [c // REMAT_STEPS for c in counts]
-        want_per = [1, k2_per_forward * (1 if policy is None else 2),
-                    k2_per_forward * BACKWARD_LAUNCHES]
+        want_per = list(own_order(1, k2_per_forward * (1 if policy is None else 2),
+                                  k2_per_forward * BACKWARD_LAUNCHES))
         log(f"remat {policy} at args{CONFIG}, batch {TRAIN_BATCH} ({card}): "
             f"{ms:.3f} ms per step over {REMAT_STEPS}; peak memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches per "
@@ -2130,8 +2148,8 @@ def substeps_path(card):
     torch.cuda.synchronize()
     ms = (time.time() - t0) / STEADY_STEPS * 1e3
     counts = [a - b for a, b in zip(torch_launches(), before)]
-    want = [STEADY_STEPS * s, STEADY_STEPS * s * sites,
-            STEADY_STEPS * s * sites * BACKWARD_LAUNCHES]
+    want = list(own_order(STEADY_STEPS * s, STEADY_STEPS * s * sites,
+                          STEADY_STEPS * s * sites * BACKWARD_LAUNCHES))
     log(f"substeps: args_dptest, {s} steps of batch {b} per dispatch ({card}): "
         f"{ms:.3f} ms per dispatch = {s * b / ms * 1e3:.1f} images/s over "
         f"{STEADY_STEPS} dispatches, no host sync; launches {counts} "
@@ -2159,7 +2177,7 @@ def sharded_path(model, args, k2_per_forward, mesh):
         counts = list(torch_launches())
         with open(os.path.join(root, "metrics", f"args{CONFIG}.csv")) as f:
             csv = f.read().strip()
-    want = [LAMBDA + 1, k2_per_forward * LAMBDA, 0]
+    want = list(own_order(LAMBDA + 1, k2_per_forward * LAMBDA, 0))
     log(f"sharded detection (NCCL W = 1, 1 volume of {BATCH} slices, lambda "
         f"{LAMBDA}): {wall:.2f} s = {BATCH / wall:.3f} slices/s; launches "
         f"{counts} (expected {want}); csv {csv!r}")
@@ -2193,7 +2211,7 @@ def ce_path(args):
         f"per slice); AUC {summary['auc']:.4f}; csv header {header!r}; "
         f"launches {counts}")
     require(header == "dice,iou,precision,recall,fpr,auc", f"CE csv {header}")
-    require(counts == [0, 0, 0], f"context encoder launched {counts}")
+    require(counts == [0] * 5, f"context encoder launched {counts}")
     require(fpr[-1] == 1.0 and tpr[-1] == 1.0, "CE ROC does not end at (1, 1)")
     return counts
 
@@ -2241,8 +2259,8 @@ def figures_path(writers):
         f"package's names; launches K1 {counts[0]}, K2 {counts[1]}, K2b "
         f"{counts[2]}")
     require(got == want, f"figures: got {sorted(got ^ want)} differently")
-    require(counts[0] > 0 and counts[1] > 0 and counts[2] == 0,
-            f"figures: launches {counts}")
+    require(counts[0] > 0 and counts[1] > 0 and counts[2] == 0
+            and not any(counts[3:]), f"figures: launches {counts}")
     return counts
 
 
@@ -2353,16 +2371,18 @@ def campaign_path(k2_per_forward, card):
     t_half = sweep_t // 2
 
     def per_step(n):
-        return (n, k2_per_forward * n, k2_per_forward * BACKWARD_LAUNCHES * n)
+        return own_order(n, k2_per_forward * n,
+                         k2_per_forward * BACKWARD_LAUNCHES * n)
 
     first = {s: (w, c) for s, w, c in runs[0][0]}
     steps = (epochs + 1) * iters
     want = {
         "train None": tuple(a + b for a, b in zip(
-            per_step(steps), (0, k2_per_forward * sweep_t, 0))),
-        "ddpm": (LAMBDA + 1, k2_per_forward * LAMBDA, 0),
-        "ddim": (15 + 1, k2_per_forward * 15, 0),
-        "testing": (t_half + 1, k2_per_forward * (sweep_t + t_half), 0)}
+            per_step(steps), own_order(0, k2_per_forward * sweep_t, 0))),
+        "ddpm": own_order(LAMBDA + 1, k2_per_forward * LAMBDA, 0),
+        "ddim": own_order(15 + 1, k2_per_forward * 15, 0),
+        "testing": own_order(t_half + 1, k2_per_forward * (sweep_t + t_half),
+                             0)}
     for stage, counts in want.items():
         require(stage in first, f"campaign: stage {stage} did not run")
         log(f"campaign stage {stage}: {first[stage][0]:.1f} s, launches K1 "
@@ -2373,11 +2393,11 @@ def campaign_path(k2_per_forward, card):
     log(f"campaign: per train step K1 1, K2 {k2_per_forward}, K2b "
         f"{k2_per_forward * BACKWARD_LAUNCHES}; the train stage adds the "
         f"{sweep_t}-forward VLB sweep of epoch 0")
-    require(runs[1][0] == [] and runs[1][2] == (0, 0, 0),
+    require(runs[1][0] == [] and runs[1][2] == (0,) * 5,
             f"campaign rerun: calls {runs[1][0]}, launches {runs[1][2]}")
     third = {s: (w, c) for s, w, c in runs[2][0]}
     want3 = {"train RESUME_FINAL": per_step(2 * iters),
-             "ddim": (15 + 1, k2_per_forward * 15, 0)}
+             "ddim": own_order(15 + 1, k2_per_forward * 15, 0)}
     require(sorted(third) == sorted(want3), f"campaign extension: {sorted(third)}")
     for stage, counts in want3.items():
         require(third[stage][1] == counts,
@@ -2568,17 +2588,18 @@ def s2d64_path(card):
             setattr(mod, name, fn)
 
     def step_counts(steps):
-        return (steps, k2 * steps, k2 * BACKWARD_LAUNCHES * steps)
+        return own_order(steps, k2 * steps, k2 * BACKWARD_LAUNCHES * steps)
 
     steps = (epochs + 1) * per_epoch
     want = [("train", tuple(a + b for a, b in zip(
-        step_counts(steps), (0, k2 * sweep_t, 0))))]
-    want += [(f"diffuse {s:g}", (16, k2 * 15, 0)) for s in S2D64_SEVERITIES]
+        step_counts(steps), own_order(0, k2 * sweep_t, 0))))]
+    want += [(f"diffuse {s:g}", own_order(16, k2 * 15, 0))
+             for s in S2D64_SEVERITIES]
     want += [("extend RESUME_FINAL", step_counts(2 * per_epoch)),
-             ("longer ddim25", (26, k2 * 25, 0)),
-             ("longer ddim15", (16, k2 * 15, 0)),
-             ("longer ddpm", (LAMBDA + 1, k2 * LAMBDA, 0)),
-             ("graph", (1 + max(lambdas), k2 * max(lambdas), 0))]
+             ("longer ddim25", own_order(26, k2 * 25, 0)),
+             ("longer ddim15", own_order(16, k2 * 15, 0)),
+             ("longer ddpm", own_order(LAMBDA + 1, k2 * LAMBDA, 0)),
+             ("graph", own_order(1 + max(lambdas), k2 * max(lambdas), 0))]
     got = [(stage, c) for stage, _, c in runs[0][0]]
     for (stage, wall, c), (_, expected) in zip(runs[0][0], want):
         log(f"s2d64 stage {stage}: {wall:.1f} s, launches K1 {c[0]}, K2 "
@@ -2587,12 +2608,12 @@ def s2d64_path(card):
     log(f"s2d64: per train step K1 1, K2 {k2}, K2b {k2 * BACKWARD_LAUNCHES} "
         f"({k2} K2 sites per s2d64 forward); the first train call adds the "
         f"{sweep_t}-forward VLB sweep of epoch 0")
-    require(runs[1][0] == [] and runs[1][2] == (0, 0, 0),
+    require(runs[1][0] == [] and runs[1][2] == (0,) * 5,
             f"s2d64 rerun: calls {runs[1][0]}, launches {runs[1][2]}")
 
     def cell_counts(p):
         repeats, n = int(p.get("recon_repeats") or 1), int(p.get("ddim_steps", LAMBDA))
-        return (repeats * (n + 1), repeats * k2 * n, 0)
+        return own_order(repeats * (n + 1), repeats * k2 * n, 0)
 
     cells = seed_replication.kept_cells(S2D64_CONFIG, S2D64_SEEDS_SKIP)
     order = [c for _, _, c, _ in seed_replication.work_list(
@@ -2601,7 +2622,7 @@ def s2d64_path(card):
             f"seeds route cells {order}")
     seeds_steps = (S2D64_SEEDS_CUTS["EPOCHS"] + 1) * per_epoch
     seeds_want = [("train", tuple(a + b for a, b in zip(
-        step_counts(seeds_steps), (0, k2 * sweep_t, 0))))]
+        step_counts(seeds_steps), own_order(0, k2 * sweep_t, 0))))]
     seeds_want += [(cell_stage(seed_replication.PROTOCOLS[c]),
                     cell_counts(seed_replication.PROTOCOLS[c])) for c in order]
     got = [(stage, c) for stage, _, c in seeds_runs[0][0]]
@@ -2609,7 +2630,7 @@ def s2d64_path(card):
         log(f"s2d64 seeds stage {stage}: {wall:.1f} s, launches K1 {c[0]}, "
             f"K2 {c[1]}, K2b {c[2]} (expected {expected})")
     require(got == seeds_want, f"s2d64 seeds launches: {got} != {seeds_want}")
-    require(seeds_runs[1][0] == [] and seeds_runs[1][2] == (0, 0, 0),
+    require(seeds_runs[1][0] == [] and seeds_runs[1][2] == (0,) * 5,
             f"s2d64 seeds rerun: calls {seeds_runs[1][0]}, launches "
             f"{seeds_runs[1][2]}")
     want_keys = {f"{c}/{k}" for c in cells
@@ -2666,21 +2687,23 @@ MEASURE_TIMING_REPS = 5      # timed forwards / train steps per norm path
 NORM_PATHS = {"kernel": dict(norm_impl="kernel"),
               "flax_fp32": dict(norm_impl="flax", bf16_norm=False),
               "flax_bf16": dict(norm_impl="flax", bf16_norm=True)}
-# A flax-order site on the card against the same site on the CPU (plain
-# PyTorch on both, reductions in another order).  The GroupNorm output h
-# rounds once, as K2's does: K2's rule (fp32 and bf16).  The SiLU is then
-# held on the same input: the card's output against the CPU's SiLU of the
-# card's h, in bf16 within 2 ulps of max(|h|, |out|) (1e-4 floor): one of
-# its per-op roundings (exp, 1 + exp, the reciprocal) going the other way
-# moves the output by at most that, by enumeration over every bf16 h; in
-# fp32 K2's rule.  dx: bit-equal in >= 99% of elements, and within 4 bf16
-# ulps of its largest magnitude (bf16: an element whose h or SiLU
-# intermediate sits an ulp apart carries up to 3 ulps into its gradient),
-# 1e-4 of it (fp32); dgamma, dbeta, sums of per-element gradients that the
-# bf16 SiLU backward rounds op by op: one bf16 ulp of their largest
-# magnitude (bf16), K2b's 1e-4 (fp32).
+# A flax-order site on the card (K2 and K2b in their flax order) against the
+# plain composition on the CPU (reductions in another order).  The GroupNorm
+# output h rounds once, as K2's does: K2's rule (fp32 and bf16), so h may
+# sit one bf16 ulp apart, which SiLU carries as at most 1.1 ulps; one of
+# SiLU's per-op roundings (exp, 1 + exp, the reciprocal) going the other
+# way moves the output by at most 2 ulps of max(|h|, |out|), by enumeration
+# over every bf16 h.  The output: in bf16 within 4 ulps of max(|h|, |out|)
+# (1e-4 floor) and bit-equal in >= 99% of elements, in fp32 K2's rule.  dx:
+# bit-equal in >= 99% of elements, and within 4 bf16 ulps of its largest
+# magnitude (bf16: an element whose h or SiLU intermediate sits an ulp
+# apart carries up to 3 ulps into its gradient), 1e-4 of it (fp32); dgamma,
+# dbeta, sums of per-element gradients that the bf16 SiLU backward rounds
+# op by op: one bf16 ulp of their largest magnitude (bf16), K2b's 1e-4
+# (fp32); the statistics K2's 1e-5; two backward runs bit-identical.
+FLAX_SITE_OUT_ULPS = 4
+FLAX_SITE_EQUAL = 0.99
 FLAX_SITE_DX_TOL = {torch.float32: K2B_TOL, torch.bfloat16: 2 ** -5}
-FLAX_SITE_DX_EQUAL = 0.99
 FLAX_SITE_PARAM_TOL = {torch.float32: K2B_TOL, torch.bfloat16: 2 ** -7}
 # The substep probe's cut: 1 epoch (+ epoch 0) of 8 iterations and a
 # schedule of 100 steps (the epoch-0 VLB sweep's length), args256syn128's
@@ -2690,8 +2713,8 @@ SUBSTEP_CUTS = {"T": 100}
 
 
 def counted_launches(what, fn, want, total):
-    """fn() with the (K1, K2, K2b) it launches required to equal `want`,
-    added to `total`; returns fn()'s result."""
+    """fn() with the launches it makes (`torch_launches`) required to equal
+    `want`, added to `total`; returns fn()'s result."""
     torch.cuda.synchronize()
     before = torch_launches()
     out = fn()
@@ -2728,49 +2751,129 @@ def flax_pass(model, batch, grad):
 
 
 def flax_site_case(shape, dtype, bf16_path, gen):
-    """`unet.flax_norm` at one site on the card against the CPU: (output
-    max|d|, dx max|d| / max|dx|, share of dx bit-equal)."""
-    from anoddpm_torch.models.unet import _JaxSiLU, flax_norm
+    """K2 and K2b in the flax order at one site on the card, through their
+    wrappers, against the plain composition on the CPU (`FLAX_SITE_*`'s
+    rules): (output max|d|, its share bit-equal, dx max|d| / max|dx|, dx's
+    share bit-equal)."""
+    from anoddpm_torch.ops import group_norm_silu as gn
+    what = f"flax order {shape} {dtype} bf16_path={bf16_path}"
     c = shape[1]
     x = (torch.randn(shape, generator=gen, device=DEVICE) * 1.7 + 0.4).to(dtype)
     gamma = 1 + 0.1 * torch.randn(c, generator=gen, device=DEVICE)
     beta = 0.1 * torch.randn(c, generator=gen, device=DEVICE)
     go = torch.randn(shape, generator=gen, device=DEVICE).to(dtype)
-    res = {}
-    for dev in (DEVICE, "cpu"):
-        xs, gs, bs = (t.detach().to(dev).requires_grad_() for t in (x, gamma, beta))
-        with torch.no_grad():
-            norm = flax_norm(xs, gs, bs, bf16_path, False)
-        out = flax_norm(xs, gs, bs, bf16_path, True)
-        out.backward(go.to(dev))
-        res[dev] = [v.detach().float().cpu() for v in (norm, out, xs.grad,
-                                                       gs.grad, bs.grad)]
-    (norm, out, dx, dg, db), (wnorm, wout, wdx, wdg, wdb) = res[DEVICE], res["cpu"]
-    # the SiLU of the card's own norm output, on the CPU
-    with torch.no_grad():
-        silu = _JaxSiLU.apply(norm.to(dtype)).float()
-    for what, got, want, ref in (("norm", norm, wnorm, wnorm),
-                                 ("SiLU", out, silu, torch.maximum(
-                                     norm.abs(), silu.abs()))):
-        diff = (got - want).abs()
-        if dtype == torch.float32:
-            ok = (diff <= K2_TOL + K2_TOL * want.abs()).all().item()
-        else:
-            ulps = 1 if what == "norm" else 2
-            ok = (diff <= torch.clamp(ulps * bf16_ulp(ref), min=K2_TOL)).all().item()
-        require(ok, f"flax site {shape} {dtype} bf16_path={bf16_path}: {what} "
-                f"max|d| {diff.max().item():.3e} out of tolerance")
+    out, mean, rstd = gn.group_norm_silu_with_stats(x, gamma, beta, order="flax")
+    back = [gn.group_norm_silu_backward(x, go, gamma, beta, mean, rstd,
+                                        order="flax", bf16_path=bf16_path)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    require(all(torch.equal(a, b) for a, b in zip(*back)),
+            f"{what}: two backward runs differ")
+    xc, gc, bc, goc = (t.cpu() for t in (x, gamma, beta, go))
+    want, wmean, wrstd = gn._plain_flax(xc, gc, bc, 1e-5)
+    norm = gn._flax_site(xc, gc, bc, False, False).float()
+    wdx, wdg, wdb = gn._plain_flax_backward(xc, goc, gc, bc, bf16_path, 1e-5)
+    stats_err = max((mean.cpu() - wmean).abs().max().item(),
+                    (rstd.cpu() - wrstd).abs().max().item())
+    require(stats_err <= K2_STATS_TOL, f"{what}: mean/rstd off by {stats_err:.3e}")
+    got, want = out.float().cpu(), want.float()
+    diff = (got - want).abs()
+    same = (got == want).float().mean().item()
+    if dtype == torch.float32:
+        ok = (diff <= K2_TOL + K2_TOL * want.abs()).all().item()
+    else:
+        ref = torch.maximum(norm.abs(), want.abs())
+        ok = ((diff <= torch.clamp(FLAX_SITE_OUT_ULPS * bf16_ulp(ref), min=K2_TOL)
+               ).all().item() and same >= FLAX_SITE_EQUAL)
+    require(ok, f"{what}: output max|d| {diff.max().item():.3e}, bit-equal "
+            f"{same:.4f}")
+    dx, wdx = back[0][0].float().cpu(), wdx.float()
     dx_err = ((dx - wdx).abs().max() / wdx.abs().max()).item()
-    same = (dx == wdx).float().mean().item()
+    dx_same = (dx == wdx).float().mean().item()
     require(dx_err <= FLAX_SITE_DX_TOL[dtype] and (
-        dtype == torch.float32 or same >= FLAX_SITE_DX_EQUAL),
-            f"flax site {shape} {dtype} bf16_path={bf16_path}: dx {dx_err:.3e}, "
-            f"bit-equal {same:.4f}")
-    for name, got, want in (("dgamma", dg, wdg), ("dbeta", db, wdb)):
-        err = ((got - want).abs().max() / want.abs().max()).item()
-        require(err <= FLAX_SITE_PARAM_TOL[dtype],
-                f"flax site {shape} {dtype}: {name} {err:.3e}")
-    return (out - wout).abs().max().item(), dx_err, same
+        dtype == torch.float32 or dx_same >= FLAX_SITE_EQUAL),
+            f"{what}: dx {dx_err:.3e}, bit-equal {dx_same:.4f}")
+    for name, g, w in (("dgamma", back[0][1], wdg), ("dbeta", back[0][2], wdb)):
+        err = ((g.cpu() - w).abs().max() / w.abs().max()).item()
+        require(err <= FLAX_SITE_PARAM_TOL[dtype], f"{what}: {name} {err:.3e}")
+    return diff.max().item(), same, dx_err, dx_same
+
+
+def flax_order_times(sites_of):
+    """The flax order of K2 per UNet forward at the detection batch and of
+    K2b per train step at the training batch, at each config's sites in
+    `sites_of`: back to back and device-only, beside the plain composition's
+    own time on the card (back to back per shape; device-only from one
+    profiler session over all the sites of a forward or a step) and K2's
+    and K2b's bytes bounds.  Returns the kernels line's two rows, from the
+    first config, each with host us per call; the other config's totals go
+    to the log."""
+    from anoddpm_torch.ops import group_norm_silu as gn
+    gen = torch.Generator(device=DEVICE).manual_seed(24)
+    rows = {}
+    for config, sites in sites_of.items():
+        for n, key in ((BATCH, "K2"), (TRAIN_BATCH, "K2b")):
+            timing, plains = {}, {}
+            for shape, dtype in {((n,) + s[1:], dt) for s, dt in sites}:
+                if key == "K2":
+                    x, gamma, beta = k2_inputs(shape, dtype, gen)
+                    fn = lambda: gn.group_norm_silu(x, gamma, beta, order="flax")
+                    plain = functools.partial(gn._plain_flax, x, gamma, beta,
+                                              1e-5)
+                    nbytes = 2 * x.numel() * x.element_size()
+                else:
+                    x, gamma, beta, go, mean, rstd = k2_inputs(
+                        shape, dtype, gen, backward=True)
+                    fn = lambda: gn.group_norm_silu_backward(
+                        x, go, gamma, beta, mean, rstd, order="flax")
+                    plain = functools.partial(gn._plain_flax_backward, x, go,
+                                              gamma, beta, False, 1e-5)
+                    nbytes = (3 * x.numel() * x.element_size() + 4 * shape[1] * 4
+                              + 2 * n * 32 * 4)
+                plains[(shape, dtype)] = plain
+                timing[(shape, dtype)] = (
+                    cuda_ms(fn, 10), graph_ms(fn, reps=10), cuda_ms(plain, 3),
+                    nbytes / HBM_BYTES_PER_S * 1e3)
+            keys = [((n,) + s[1:], dt) for s, dt in sites]
+            plain_dev = profiled_device_ms(
+                lambda: [plains[k]() for k in keys], reps=1)
+            k, b, p, bound = (sum(timing[s][i] for s in keys) for i in range(4))
+            rows[(config, key)] = (k, b, p, plain_dev, bound)
+            log(f"{key} in the flax order at args{config}'s {len(sites)} sites, "
+                f"N={n} (per {'forward' if key == 'K2' else 'train step'}): "
+                f"kernel {k:.3f} ms back to back, {b:.3f} ms device-only; plain "
+                f"composition {p:.3f} ms back to back, {plain_dev:.3f} ms "
+                f"device-only; bound {bound:.3f} ms ({bound / b:.1%} of it "
+                f"device-only)")
+    x = torch.randn(K2_HOST_SHAPE, device=DEVICE).to(torch.bfloat16)
+    gamma = torch.ones(K2_HOST_SHAPE[1], device=DEVICE)
+    beta = torch.zeros(K2_HOST_SHAPE[1], device=DEVICE)
+    host = host_us(lambda: gn.group_norm_silu(x, gamma, beta, order="flax"))
+    xb = torch.randn(K2B_HOST_SHAPE, device=DEVICE).to(torch.bfloat16)
+    gb, bb = gamma.new_ones(K2B_HOST_SHAPE[1]), beta.new_zeros(K2B_HOST_SHAPE[1])
+    _, mean, rstd = gn.group_norm_silu_with_stats(xb, gb, bb, order="flax")
+    host_b = host_us(lambda: gn.group_norm_silu_backward(
+        xb, xb, gb, bb, mean, rstd, order="flax"))
+    log(f"flax order host us per call: K2 {host:.2f} at {K2_HOST_SHAPE} bf16, "
+        f"K2b {host_b:.2f} at {K2B_HOST_SHAPE} bf16")
+    first = next(iter(sites_of))
+    note = ("no TPU kernel: the JAX package's default GroupNorm32 + nn.silu "
+            "(XLA's fusion); a mode of the kernel in the same source. "
+            "library_ms is the plain composition's own device-only time")
+    out = []
+    for key, name, src, host_call in (
+            ("K2", "group_norm_silu (flax order)", "group_norm_silu.cu", host),
+            ("K2b", "group_norm_silu_backward (flax order)",
+             "group_norm_silu_backward.cu", host_b)):
+        t = rows[(first, key)]
+        out.append(dict(name=name, route="cuda",
+                        source=f"anoddpm_torch/csrc/{src}",
+                        replaces="anoddpm_tpu/models/unet.py:48", note=note,
+                        max_abs_err=None, ms=t[0], device_ms=t[1],
+                        host_us_per_call=host_call, plain_ms=t[2],
+                        bound_ms=t[4], bound_by="bytes", library_ms=t[3],
+                        library_device_ms=t[3]))
+    return out
 
 
 def norm_path_times(args, card):
@@ -2812,16 +2915,18 @@ def measuring_path(card):
     meta device's; `norm_impl="flax"` at args256syn128's and s2d64's widths
     forward and backward (no K2 without pallas_norm, K2 and K2b exactly at
     the eligible sites with it), the flax-order site on the card against
-    the CPU at every (C, H, W, dtype) of both models' sites, ms per forward
-    and train step of the three norm paths; and the substep probe cut to 1
-    epoch of 8 iterations.  Returns the (K1, K2, K2b) launches."""
+    the CPU at every (C, H, W, dtype) of both models' sites (K2 and K2b in
+    their flax order, both bf16_path), their times, ms per forward and
+    train step of the three norm paths; and the substep probe cut to 1
+    epoch of 8 iterations.  Returns the launches and the kernels line's
+    rows of the flax order."""
     from anoddpm_torch import bench
     from anoddpm_torch.campaigns import substep_probe
     from anoddpm_torch.config import load_args
     from anoddpm_torch.ops import group_norm_silu as gn
     from anoddpm_torch.ops.group_norm_silu import BACKWARD_LAUNCHES
     t_phase = time.time()
-    total = [0, 0, 0]
+    total = [0] * 5
     img = MEASURE_IMG
     k = site_count(img_size=img, base_channels=64, space_to_depth=2,
                    attention_resolutions="16,8", n_heads=2)
@@ -2833,17 +2938,17 @@ def measuring_path(card):
             MEASURE_BATCH, t_distance=MEASURE_LAMBDA, img=img,
             base_channels=64, space_to_depth=2, ddim_steps=15, ddim_eta=1.0,
             repeats=MEASURE_REPEATS, device=DEVICE),
-        (16 * chains, 15 * k * chains, 0), total)
+        own_order(16 * chains, 15 * k * chains, 0), total)
     paper_sps, _ = counted_launches(
         "bench paper DDPM", lambda: bench.run_bench(
             MEASURE_BATCH, t_distance=MEASURE_LAMBDA, img=img,
             base_channels=128, repeats=MEASURE_REPEATS, device=DEVICE),
-        ((MEASURE_LAMBDA + 1) * chains, k_paper * MEASURE_LAMBDA * chains, 0),
-        total)
+        own_order((MEASURE_LAMBDA + 1) * chains, k_paper * MEASURE_LAMBDA * chains,
+                  0), total)
     probe = counted_launches(
         "bench train", lambda: bench.train_probe(
             TRAIN_BATCH, img, 128, substeps=1, repeats=1, device=DEVICE),
-        (3, 3 * k_paper, 3 * k_paper * BACKWARD_LAUNCHES), total)
+        own_order(3, 3 * k_paper, 3 * k_paper * BACKWARD_LAUNCHES), total)
     log(f"bench at quick sizes ({card}): headline DDIM-15 at lambda "
         f"{MEASURE_LAMBDA}, batch {MEASURE_BATCH}: {sps:.3f} slices/s (IQR "
         f"{spread['sps_iqr'][0]:.3f}-{spread['sps_iqr'][1]:.3f}), {k} K2 "
@@ -2853,15 +2958,16 @@ def measuring_path(card):
         f"{bench.PEAK_TFLOPS_BF16} TFLOPS (one timed step)")
     flops = counted_launches(
         "FLOP count", lambda: bench.unet_fwd_flops(2, 64, 2, img, device=DEVICE),
-        (0, k, 0), total)
+        own_order(0, k, 0), total)
     want_flops = bench.unet_fwd_flops(2, 64, 2, img, norm=dict(norm_impl="flax"),
                                       device="meta")
     require(flops == want_flops, f"FLOPs on the card {flops} != {want_flops}")
     log(f"UNet forward FLOPs, headline at batch 2: {flops / 1e9:.3f} GFLOP on "
         f"the card (kernel path), equal to the meta device's count")
-    # the JAX package's composition, forward and backward, at both widths;
-    # with pallas_norm, K2 exactly at the sites whose NHWC shape passes the
-    # TPU kernel's gate
+    # the JAX package's composition, forward and backward, at both widths:
+    # K2 and K2b in their flax order at every site, or, with pallas_norm, K2
+    # and K2b in their own order exactly at the sites whose NHWC shape
+    # passes the TPU kernel's gate and the flax order at the rest
     sites_of = {}
     for config in (CONFIG, S2D64_CONFIG):
         args = load_args(config, config_dir=os.path.join(ROOT, "configs"))
@@ -2869,41 +2975,51 @@ def measuring_path(card):
         eligible = sum(gn.eligible((n, h, w, c), dtype)
                        for (n, c, h, w), dtype in sites_of[config])
         require(eligible > 0, f"args{config}: no site passes the gate")
+        n_sites = len(sites_of[config])
         for pallas in (False, True):
             model = seeded_model({**args, "norm_impl": "flax",
                                   "bf16_norm": True, "pallas_norm": pallas})
             e = eligible if pallas else 0
+            f = n_sites - e
             for batch, grad in ((BATCH, False), (TRAIN_BATCH, True)):
                 counted_launches(
                     f"flax args{config} pallas_norm={pallas} batch {batch}",
                     lambda: flax_pass(model, batch, grad),
-                    (0, e, e * BACKWARD_LAUNCHES * grad), total)
+                    (0, e, e * BACKWARD_LAUNCHES * grad, f,
+                     f * BACKWARD_LAUNCHES * grad), total)
             del model
             torch.cuda.empty_cache()
         log(f"flax path, args{config}, bf16_norm: forward at batch {BATCH}, "
-            f"forward and backward at {TRAIN_BATCH}: no K2 without "
-            f"pallas_norm; with it K2 (and K2b) at {eligible} of "
-            f"{len(sites_of[config])} sites, the composition at the rest")
+            f"forward and backward at {TRAIN_BATCH}: without pallas_norm K2 "
+            f"and K2b in the flax order at all {n_sites} sites; with it K2 "
+            f"(and K2b) in their own order at {eligible} sites, the flax order "
+            f"at the rest")
     gen = torch.Generator(device=DEVICE).manual_seed(22)
-    worst = [0.0, 0.0, 1.0]
+    worst = [0.0, 1.0, 0.0, 1.0]
     shapes = sorted({s for sites in sites_of.values() for s in sites}, key=str)
     for shape, dtype in shapes:
-        for bf16_path in ((False, True) if dtype == torch.bfloat16 else (False,)):
-            out_err, dx_err, same = flax_site_case(shape, dtype, bf16_path, gen)
-            worst = [max(worst[0], out_err), max(worst[1], dx_err),
-                     min(worst[2], same)]
-    log(f"flax-order sites on the card vs the CPU at {len(shapes)} (shape, "
-        f"dtype) of both models at N = 1: output max|d| {worst[0]:.3e}, dx "
-        f"max|d| {worst[1]:.3e} of its largest magnitude, dx bit-equal in "
-        f">= {worst[2]:.4f} of elements")
+        for bf16_path in (False, True):
+            got = flax_site_case(shape, dtype, bf16_path, gen)
+            worst = [max(worst[0], got[0]), min(worst[1], got[1]),
+                     max(worst[2], got[2]), min(worst[3], got[3])]
+    log(f"flax order on the card vs the plain composition on the CPU at "
+        f"{len(shapes)} (shape, dtype) of both models at N = 1, bf16_path "
+        f"off and on, forward and backward: output max|d| {worst[0]:.3e}, "
+        f"bit-equal in >= {worst[1]:.4f} of elements; dx max|d| "
+        f"{worst[2]:.3e} of its largest magnitude, bit-equal in >= "
+        f"{worst[3]:.4f}; bit-identical backward reruns")
+    flax_rows = flax_order_times(sites_of)
+    for row in flax_rows:
+        row["max_abs_err"] = worst[0] if "backward" not in row["name"] \
+            else worst[2]
     s2d_args = load_args(S2D64_CONFIG, config_dir=os.path.join(ROOT, "configs"))
     norm_path_times(s2d_args, card)
     # the substep probe, cut
     args = load_args(CONFIG, config_dir=os.path.join(ROOT, "configs"))
     t_cut = SUBSTEP_CUTS["T"]
     steps = 2 * 8                      # epochs 0 and 1, 8 iterations each
-    per_run = (steps, k_paper * (steps + t_cut),
-               k_paper * BACKWARD_LAUNCHES * steps)
+    per_run = own_order(steps, k_paper * (steps + t_cut),
+                        k_paper * BACKWARD_LAUNCHES * steps)
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build"),
                                      prefix="substeps-") as root:
@@ -2920,8 +3036,9 @@ def measuring_path(card):
             f"{r['substeps']} substeps {r['sec_per_epoch']:.2f} s per epoch"
             for r in rows))
     log(f"measuring: the phase {time.time() - t_phase:.1f} s; launches "
-        f"K1 {total[0]}, K2 {total[1]}, K2b {total[2]}")
-    return tuple(total)
+        f"K1 {total[0]}, K2 {total[1]}, K2b {total[2]}, K2 in the flax order "
+        f"{total[3]}, K2b in the flax order {total[4]}")
+    return tuple(total), flax_rows
 
 
 def main():
@@ -3028,14 +3145,14 @@ def main():
     counts["s2d64"] = s2d64_path(card)
     shapes_of("s2d64 campaigns")
     phase("s2d64 campaigns")
-    counts["measuring"] = measuring_path(card)
+    counts["measuring"], flax_rows = measuring_path(card)
     shapes_of("measuring")
     phase("measuring")
     k2b_row["max_abs_err"] = max(k2b_row["max_abs_err"], k2b_worst,
                                  shape_worst[1])
     k1_row["max_abs_err"] = max(k1_row["max_abs_err"], k1_worst)
     k2_row["max_abs_err"] = max(k2_row["max_abs_err"], k2_worst, shape_worst[0])
-    rows = (k1_row, k2_row, k2b_row)
+    rows = (k1_row, k2_row, k2b_row, *flax_rows)
     for i, row in enumerate(rows):
         row["launches_by_path"] = {p: c[i] for p, c in counts.items()}
         row["launches"] = sum(row["launches_by_path"].values())

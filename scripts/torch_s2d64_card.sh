@@ -15,15 +15,21 @@
 #            volumes;
 #   f3       `campaigns.f3_s2d64`: that seed-0 model in three
 #            seed-replication cells against the JAX package's band;
-#   seeds S...  for each seed S, `campaigns.seed_replication S
-#            --skip=paper128`: args256syn64s2d seed S trained to its recipe
-#            (8 substeps, 600 epochs) and scored in the 9 s2d64 cells, one
-#            process per seed.  OUT's results file starts as a copy of the
+#   seeds [--flax-order] [--together] S...  for each seed S,
+#            `campaigns.seed_replication S --skip=paper128`: args256syn64s2d
+#            seed S trained to its recipe (8 substeps, 600 epochs) and
+#            scored in the 9 s2d64 cells, one process per seed, one after
+#            another.  OUT's results file starts as a copy of the
 #            checkout's results/torch_seed_replication.json, so that the
-#            aggregates cover the seeds already there.
+#            aggregates cover the seeds already there.  --flax-order passes
+#            `--norm-order flax` (the JAX package's norm order; each seed's
+#            entries in its own results/torch_f3_flax_order_seeds<S>.json,
+#            logs flaxorder_seed<S>.log); --together starts the seeds'
+#            processes at once on the one card and waits for all of them.
 # diffuse and longer need train's model, f3 needs dense's; nothing under
 # build/ outlives a remote call, so a call runs train..longer, dense..f3 or
-# seeds with the seeds it trains (two fit in a call of 3,600 s).
+# seeds with the seeds it trains (two one after another fit in a call of
+# 3,600 s).
 #
 # Everything runs under build/s2d64, whose results/, metrics/ and
 # final-outputs/ are links into OUT (build/s2d64-out by default), so that
@@ -48,26 +54,69 @@ if ! python3 -c 'import importlib.util, sys; sys.exit(importlib.util.find_spec("
   echo "no matplotlib: plots go to the stand-in in scripts/no_matplotlib (no PNG)"
 fi
 nvidia-smi --query-gpu=name,power.limit --format=csv,noheader | tee "$out/card.txt"
-nvidia-smi --query-gpu=timestamp,clocks.sm,power.draw,power.limit,temperature.gpu \
+nvidia-smi --query-gpu=timestamp,clocks.sm,power.draw,power.limit,temperature.gpu,utilization.gpu \
   --format=csv,noheader --loop=60 >> "$out/smi.log" &
 smi=$!
 trap 'kill $smi 2>/dev/null; wait $smi 2>/dev/null' EXIT
 m=anoddpm_torch.campaigns
-# the seeds stage: one stage "seed<S>" per seed number after "seeds"
+# the seeds stage: one stage "seed<S>" per seed number after "seeds", or one
+# stage "together" that runs them all at once
 expanded=()
 in_seeds=0
+seed_order=()
+log_prefix=
+together=()
 for stage in "${stages[@]}"; do
   if [ "$stage" = seeds ]; then
     in_seeds=1
+  elif [ $in_seeds -eq 1 ] && [ "$stage" = --flax-order ]; then
+    seed_order=(--norm-order flax)
+    log_prefix=flaxorder_
+  elif [ $in_seeds -eq 1 ] && [ "$stage" = --together ]; then
+    together=(together)
+    expanded+=(together)
   elif [ $in_seeds -eq 1 ] && [[ $stage =~ ^[0-9]+$ ]]; then
-    expanded+=("seed$stage")
+    if [ ${#together[@]} -gt 0 ]; then
+      together+=("$stage")
+    else
+      expanded+=("seed$stage")
+    fi
   else
     in_seeds=0
     expanded+=("$stage")
   fi
 done
 seeds_file=results/torch_seed_replication.json
+seed_cmd() {
+  [ ${#seed_order[@]} -gt 0 ] || [ -e "$out/$seeds_file" ] \
+    || cp "$seeds_file" "$out/$seeds_file"
+  cmd=(python3 -m $m.seed_replication "$1" --skip=paper128 "${seed_order[@]}"
+       --root "$root")
+}
 for stage in "${expanded[@]}"; do
+  if [ "$stage" = together ]; then
+    # one process per seed, all started now; each seed's log and rc
+    pids=()
+    for s in "${together[@]:1}"; do
+      seed_cmd "$s"
+      "${cmd[@]}" > "$out/${log_prefix}seed$s.log" 2>&1 &
+      pids+=($!)
+    done
+    start=$(date +%s)
+    rc=0
+    i=0
+    for s in "${together[@]:1}"; do
+      wait "${pids[$i]}"
+      r=$?
+      grep -v '^\[' "$out/${log_prefix}seed$s.log" | tail -n 12
+      echo "stage ${log_prefix}seed$s rc=$r after $(( $(date +%s) - start )) s"
+      [ $r -eq 0 ] || rc=$r
+      i=$((i + 1))
+    done
+    [ $rc -eq 0 ] || exit $rc
+    continue
+  fi
+  log=$stage
   case $stage in
     train) cmd=(python3 -c "from anoddpm_torch.campaigns.seed_replication import ensure_trained; ensure_trained('256syn64s2d', 1, '$root')") ;;
     diffuse) cmd=(python3 -m $m.diffuse_calibration --root "$root") ;;
@@ -75,14 +124,14 @@ for stage in "${expanded[@]}"; do
     dense) cmd=(python3 -m $m.dense_sweep 25 22 --root "$root") ;;
     f3) cmd=(python3 -m $m.f3_s2d64 --root "$root") ;;
     seed[0-9]*)
-      [ -e "$out/$seeds_file" ] || cp "$seeds_file" "$out/$seeds_file"
-      cmd=(python3 -m $m.seed_replication "${stage#seed}" --skip=paper128 --root "$root") ;;
+      seed_cmd "${stage#seed}"
+      log=$log_prefix$stage ;;
     *) echo "unknown stage $stage"; exit 2 ;;
   esac
   start=$(date +%s)
-  "${cmd[@]}" > "$out/$stage.log" 2>&1
+  "${cmd[@]}" > "$out/$log.log" 2>&1
   rc=$?
-  grep -v '^\[' "$out/$stage.log" | tail -n 40
-  echo "stage $stage rc=$rc after $(( $(date +%s) - start )) s"
+  grep -v '^\[' "$out/$log.log" | tail -n 40
+  echo "stage $log rc=$rc after $(( $(date +%s) - start )) s"
   [ $rc -eq 0 ] || exit $rc
 done

@@ -276,7 +276,8 @@ def test_run_trains_only_configs_with_a_cell_left(tmp_path, skip, trained):
     every config trains, as before."""
     calls, scored = [], []
 
-    def ensure(config, seed, root_dir, device):
+    def ensure(config, seed, root_dir, device, norm_order):
+        assert norm_order == "kernel"
         calls.append((config, seed))
         return f"{config}_s{seed}"
 
