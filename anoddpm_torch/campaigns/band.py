@@ -8,10 +8,12 @@ inside it (`hold`, `verdict`).
 The port's seeds and the JAX package's as two samples (`compare`,
 `two_sample`): per cell and metric, Welch's t for the level and the
 two-sided F-test of the variances for the spread, each family of p-values
-under Holm.  ``python -m anoddpm_torch.campaigns.band [--root DIR]``
+under Holm.  ``python -m anoddpm_torch.campaigns.band [--root DIR] [--out NAME]``
 compares the s2d64 cells of DIR's ``results/torch_seed_replication.json``
-with the checkout's JAX file and writes ``results/torch_f3_two_sample.json``
-under DIR.
+and ``results/torch_seed_replication_seeds*.json`` (the per-process files
+of seeds trained at once) with the checkout's JAX file and writes
+``results/torch_f3_two_sample.json`` (or NAME) under DIR, with F3's verdict
+by the rule of PERF.md section 2 (`f3_verdict`).
 
 F3's rounding A/B (`flax_order_verdict`): ``... band --flax-order`` holds
 the seeds trained in the JAX package's norm order (DIR's
@@ -38,7 +40,8 @@ from scipy import stats
 
 from ._results import (F3_FLAX_ORDER, F3_TWO_SAMPLE, SEED_REPLICATION,
                        save_results)
-from .seed_replication import FLAX_ORDER_RESULTS, MODELS, seed_entries
+from .seed_replication import (FLAX_ORDER_RESULTS, MODELS, OWN_FILE_RESULTS,
+                               seed_entries)
 
 K = 2.0
 CELL = "paper128_ddpm200"
@@ -208,6 +211,28 @@ def flax_order_verdict(vs_jax: Mapping, vs_kernel: Mapping) -> str:
     return "open"
 
 
+def f3_verdict(res: Mapping) -> str:
+    """F3's verdict on the port's seeds against the JAX seeds (`two_sample`'s
+    result), by the rule of PERF.md section 2: "open" while the F-test of
+    DDIM-20 Dice rejects under Holm; "closed: the JAX sample's small sigma"
+    when nothing rejects; else a new finding, naming what rejects."""
+    named = "/".join(F3_CELL)
+    if res["holm"]["f"].get(named, {}).get("rejected"):
+        return "open"
+    others = [f"{test} {k}" for test in ("welch", "f")
+              for k in res["rejected"][test]]
+    if not others:
+        return "closed: the JAX sample's small sigma"
+    return "new finding: " + ", ".join(others)
+
+
+def port_seed_files(root: str):
+    """The results files of the port's default-order seeds under `root`:
+    the shared file, then the per-process ones."""
+    own = sorted(glob.glob(os.path.join(root, OWN_FILE_RESULTS.format("*"))))
+    return [os.path.join(root, SEED_REPLICATION)] + own
+
+
 def flax_order_main(root: str, jax_path: str) -> Dict[str, object]:
     """The A/B's two comparisons and verdict, written under `root`."""
     paths = sorted(glob.glob(os.path.join(root, FLAX_ORDER_RESULTS.format("*"))))
@@ -256,8 +281,10 @@ def _print(what: str, out: Mapping) -> None:
 def main(argv=None):
     p = argparse.ArgumentParser(prog="python -m anoddpm_torch.campaigns.band")
     p.add_argument("--root", default=".",
-                   help="reads DIR/results/torch_seed_replication.json and "
+                   help="reads DIR/results/torch_seed_replication*.json and "
                         "writes DIR/results/torch_f3_two_sample.json")
+    p.add_argument("--out", default=F3_TWO_SAMPLE,
+                   help="the results file written under DIR")
     p.add_argument("--jax", default=JAX_SEED_RESULTS)
     p.add_argument("--flax-order", action="store_true",
                    help="F3's rounding A/B: the flax-order seeds against the "
@@ -265,13 +292,16 @@ def main(argv=None):
     ns = p.parse_args(sys.argv[1:] if argv is None else argv)
     if ns.flax_order:
         return flax_order_main(ns.root, ns.jax)
-    with open(os.path.join(ns.root, SEED_REPLICATION)) as f:
-        port = json.load(f)
+    paths = port_seed_files(ns.root)
+    port = merged_seed_files(paths)
     with open(ns.jax) as f:
         jax = json.load(f)
     out = two_sample(port, jax, MODELS["256syn64s2d"])
-    save_results(ns.root, F3_TWO_SAMPLE, out)
+    out["files"] = [os.path.relpath(p, ns.root) for p in paths]
+    out["f3_verdict"] = f3_verdict(out)
+    save_results(ns.root, ns.out, out)
     _print("the port's seeds vs JAX", out)
+    print(f"F3: {out['f3_verdict']}")
     return out
 
 

@@ -1,7 +1,7 @@
 """Seed-replicated quality evidence:
 ``python -m anoddpm_torch.campaigns.seed_replication [seeds...]
-[--skip=a,b] [--norm-order kernel|flax] [--root DIR]`` (seeds 0 1 2 3 4 by
-default).
+[--skip=a,b] [--norm-order kernel|flax] [--own-file] [--root DIR]`` (seeds
+0 1 2 3 4 by default).
 
 Counterpart of `scripts/seed_replication.py`.  Each model cell trains
 fresh seeds end to end through `train.train` (8 steps per dispatch, token
@@ -17,7 +17,10 @@ as its seed band was trained (`NORM_ORDERS`: `norm_impl` "flax",
 `bf16_norm` and `pallas_norm` off), under their own tokens
 ``{config}_s{seed}_flaxorder``, and writes their entries to
 ``results/torch_f3_flax_order_seeds{seeds}.json``, one file per process,
-so that processes of different seeds can run at once.
+so that processes of different seeds can run at once.  `--own-file` does
+the same in the default order: the entries go to
+``results/torch_seed_replication_seeds{seeds}.json``
+(`campaigns.band` reads them beside the shared file).
 """
 
 from __future__ import annotations
@@ -91,13 +94,18 @@ NORM_ORDERS = {"kernel": ({}, ""),
                "flax": ({"norm_impl": "flax", "bf16_norm": False,
                          "pallas_norm": False}, "_flaxorder")}
 FLAX_ORDER_RESULTS = "results/torch_f3_flax_order_seeds{}.json"
+OWN_FILE_RESULTS = "results/torch_seed_replication_seeds{}.json"
 
 
-def results_name(seeds: Sequence[int], norm_order: str = "kernel") -> str:
-    """The results file of a run of `seeds` in `norm_order`."""
-    if norm_order == "kernel":
-        return SEED_REPLICATION
-    return FLAX_ORDER_RESULTS.format("".join(str(s) for s in seeds))
+def results_name(seeds: Sequence[int], norm_order: str = "kernel",
+                 own_file: bool = False) -> str:
+    """The results file of a run of `seeds` in `norm_order`: the shared
+    file of the default order, unless `own_file` asks for one per process
+    (always so in the flax order)."""
+    tag = "".join(str(s) for s in seeds)
+    if norm_order != "kernel":
+        return FLAX_ORDER_RESULTS.format(tag)
+    return OWN_FILE_RESULTS.format(tag) if own_file else SEED_REPLICATION
 
 
 def train_args_for(config: str, seed: int, root_dir: str = ".",
@@ -183,12 +191,12 @@ def aggregate(res, seeds=None, cells=None) -> None:
 
 def run(seeds: Sequence[int] = (0, 1, 2, 3, 4), skip: Sequence[str] = (),
         root_dir: str = ".", device: DeviceLike = None,
-        norm_order: str = "kernel"):
+        norm_order: str = "kernel", own_file: bool = False):
     """Train every (config, seed) of MODELS that has a cell left after
     `skip`, in `norm_order`, evaluate every missing entry, aggregate;
-    returns the results dict."""
+    returns the results dict (`results_name` says which file)."""
     device = resolve_device(device)
-    name = results_name(seeds, norm_order)
+    name = results_name(seeds, norm_order, own_file)
     res = load_results(root_dir, name)
     # training first: the expensive assets exist even if evaluation stops
     tokens = {(config, seed): ensure_trained(config, seed, root_dir, device,
@@ -220,11 +228,13 @@ def main(argv=None, device: DeviceLike = None):
                    help="comma-separated substrings of cells to leave out")
     p.add_argument("--norm-order", choices=sorted(NORM_ORDERS),
                    default="kernel")
+    p.add_argument("--own-file", action="store_true",
+                   help="write this process's entries to a file of its own")
     p.add_argument("--root", default=".")
     ns = p.parse_args(sys.argv[1:] if argv is None else argv)
     return run(ns.seeds or [0, 1, 2, 3, 4],
                [s for s in ns.skip.split(",") if s], ns.root, device=device,
-               norm_order=ns.norm_order)
+               norm_order=ns.norm_order, own_file=ns.own_file)
 
 
 if __name__ == "__main__":

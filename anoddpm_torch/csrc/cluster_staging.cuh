@@ -77,10 +77,74 @@ __device__ __forceinline__ float flax_norm_value(float x, float mean,
                                                  float mul, float beta) {
   return __fadd_rn(__fmul_rn(__fsub_rn(x, mean), mul), beta);
 }
+// (__frcp_rn(d), the same correctly rounded 1 / d, timed no faster at the
+// fp32 sites: scripts/torch_k2_layouts.py and torch_k2b_layouts.py
+// --dtype float32.)
 template <typename T>
 __device__ __forceinline__ float jax_sigmoid(float h) {
   const float e = round_to<T>(expf(-h));
   return round_to<T>(__fdiv_rn(1.0f, round_to<T>(__fadd_rn(1.0f, e))));
+}
+
+// At a bf16 site h is a bf16 value, so the flax order's SiLU is an exact
+// function of h's 16 bits: the kernels read it from a table filled once per
+// card by `jax_sigmoid<__nv_bfloat16>` itself, in place of the per-element
+// expf, the division and their roundings.  Per sign, slot 0 serves every
+// |h| < 2^-8 (s = 1/2 there), slots 1..1920 the bf16 values of |h| in
+// [2^-8, 2^7) one each, slot 1921 every |h| >= 2^7 and inf (s = 1 for h > 0,
+// 0 for h < 0) and slot 1922 NaN.  Slot (sign, k) sits at sign * ROW + k;
+// the array is padded to whole 16-byte copies.
+constexpr int FLAX_TABLE_ROW = 1923;
+constexpr int FLAX_TABLE_ENTRIES = 3848;   // 2 * ROW, padded to 8
+constexpr uint32_t FLAX_TABLE_LO = 119u << 7;  // bits of 2^-8 (sign off)
+constexpr uint32_t BF16_INF = 0x7F80u;
+
+// The slot of the bf16 value with bits b.
+__device__ __forceinline__ int flax_table_index(uint32_t b) {
+  const uint32_t e = b & 0x7FFFu;
+  const int k = min(max((int)e - (int)FLAX_TABLE_LO + 1, 0), 1921) +
+                (e > BF16_INF);
+  return (int)(b >> 15) * FLAX_TABLE_ROW + k;
+}
+
+// The h that fills slot i (a padding slot gets 0).
+__device__ __forceinline__ float flax_table_h(int i) {
+  const uint32_t sign = i >= FLAX_TABLE_ROW ? 0x8000u : 0u;
+  const int k = i % FLAX_TABLE_ROW;
+  uint32_t e = 0;                                   // +-0 for |h| < 2^-8
+  if (i >= 2 * FLAX_TABLE_ROW) return 0.0f;
+  if (k >= 1 && k <= 1920) e = FLAX_TABLE_LO + (uint32_t)(k - 1);
+  if (k == 1921) e = BF16_INF;
+  if (k == 1922) e = 0x7FC0u;                       // a quiet NaN
+  return __uint_as_float((sign | e) << 16);
+}
+
+// Launch the kernel `fill` (one thread per entry of a table in device
+// memory, no arguments) once per card, on a stream of its own, and wait for
+// it; each source that includes this header keeps its own record of the
+// cards it filled.
+cudaError_t fill_table_once(void (*fill)(), int entries) {
+  constexpr int MAX_DEVICES = 64;
+  static bool filled[MAX_DEVICES] = {};
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess || device >= MAX_DEVICES || filled[device]) return err;
+  cudaStream_t stream;
+  err = cudaStreamCreateWithFlags(&stream, cudaStreamNonBlocking);
+  if (err != cudaSuccess) return err;
+  err = cudaLaunchKernel((const void*)fill, dim3((entries + 255) / 256),
+                         dim3(256), nullptr, 0, stream);
+  if (err == cudaSuccess) err = cudaStreamSynchronize(stream);
+  const cudaError_t destroyed = cudaStreamDestroy(stream);
+  if (err == cudaSuccess) err = destroyed;
+  filled[device] = err == cudaSuccess;
+  return err;
+}
+
+// h rounded to bf16, and its bits.
+__device__ __forceinline__ float bf16_round_bits(float v, uint32_t& bits) {
+  bits = __bfloat16_as_ushort(__float2bfloat16_rn(v));
+  return __uint_as_float(bits << 16);
 }
 
 // Sum a and b over the warp in a fixed order; every lane gets the totals.

@@ -14,7 +14,18 @@
 // length, rstd = 1 / sqrt(var + eps), h = (x - mean) * (rstd * gamma_c) +
 // beta_c rounded once to x's dtype, then SiLU op by op in that dtype
 // (`flax_norm_value`, `jax_sigmoid` in cluster_staging.cuh).  Everything
-// else, the layout and the passes, is the same.
+// else, the layout and the passes, is the same.  At a bf16 site the SiLU
+// of h takes its sigmoid from a table over h's bits (cluster_staging.cuh,
+// `flax_table_index`): `flax_sigmoid_table` holds s(h) as bf16 for each
+// slot, filled once per card by the same device function
+// (`group_norm_silu_prepare` launches `fill_flax_table`), so that the
+// outputs keep their bits while the expf, the division and three roundings
+// per element become one table load (out = h s is one multiply).  Each
+// block copies the table into shared memory beside its slice as its first
+// bulk copy (timed 15% faster a forward than reading it from global memory
+// through L1: scripts/torch_k2_layouts.py --root on such a copy);
+// `group_norm_silu_flax_table_probe` holds the table against the direct
+// computation at all 65,536 bf16 values of h.
 //
 // Bound: bytes.  The least traffic is one read and one write of x; the
 // arithmetic is a few operations per element.
@@ -52,6 +63,32 @@ constexpr int MAX_THREADS = 256;
 constexpr int CHUNKS = 4;
 constexpr int ORDER_KERNEL = 0;  // the TPU kernel's order
 constexpr int ORDER_FLAX = 1;    // flax's GroupNorm, then SiLU in x's dtype
+
+// The flax order's sigmoid s(h) per slot of h (bf16 bits).
+__device__ __align__(16) uint16_t flax_sigmoid_table[FLAX_TABLE_ENTRIES];
+constexpr int FLAX_TABLE_BYTES = FLAX_TABLE_ENTRIES * 2;
+
+// Whether ORDER's kernel at T reads the table, and the table's bytes in a
+// block's dynamic shared memory.
+template <typename T, int ORDER>
+__host__ __device__ constexpr bool uses_table() {
+  return ORDER == ORDER_FLAX && sizeof(T) == 2;
+}
+template <typename T, int ORDER>
+__host__ __device__ constexpr int table_smem() {
+  return uses_table<T, ORDER>() ? FLAX_TABLE_BYTES : 0;
+}
+
+// The direct flax-order sigmoid of the bf16 value h, as bf16 bits.
+__device__ __forceinline__ uint16_t flax_sigmoid_direct(float h) {
+  return (uint16_t)(__float_as_uint(jax_sigmoid<__nv_bfloat16>(h)) >> 16);
+}
+
+__global__ void fill_flax_table() {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < FLAX_TABLE_ENTRIES)
+    flax_sigmoid_table[i] = flax_sigmoid_direct(flax_table_h(i));
+}
 
 struct Params {
   const void* x;
@@ -92,11 +129,18 @@ __device__ __forceinline__ void add_vectors(const T* src, int begin, int end,
 }
 
 // One output element from x's value v: in ORDER's order, with (a, b) the
-// channel's (scale, shift) for ORDER_KERNEL and (mul, beta) for ORDER_FLAX.
+// channel's (scale, shift) for ORDER_KERNEL and (mul, beta) for ORDER_FLAX;
+// at a bf16 site of ORDER_FLAX from the staged table `tab`.
 template <typename T, int ORDER>
-__device__ __forceinline__ float site(float v, float mean, float a, float b) {
+__device__ __forceinline__ float site(float v, float mean, float a, float b,
+                                      const uint16_t* tab) {
   if constexpr (ORDER == ORDER_KERNEL) {
     return silu(v * a + b);
+  } else if constexpr (uses_table<T, ORDER>()) {
+    uint32_t bits;
+    const float h = bf16_round_bits(flax_norm_value(v, mean, a, b), bits);
+    const int i = flax_table_index(bits);
+    return __fmul_rn(h, __uint_as_float((uint32_t)tab[i] << 16));
   } else {
     const float h = round_to<T>(flax_norm_value(v, mean, a, b));
     return __fmul_rn(h, jax_sigmoid<T>(h));
@@ -111,7 +155,8 @@ __global__ void __launch_bounds__(MAX_THREADS)
   using V = Vec<T>;
   constexpr int W = V::N;
   extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ __align__(8) uint64_t bars[CHUNKS];
+  // the chunks' mbarriers, then the table's where it is staged
+  __shared__ __align__(8) uint64_t bars[CHUNKS + (table_smem<T, ORDER>() > 0)];
   __shared__ float warp_sums[MAX_THREADS / 32][2];
   __shared__ float block_sums[2];
   __shared__ float stats[2];
@@ -125,6 +170,19 @@ __global__ void __launch_bounds__(MAX_THREADS)
   const T* x = static_cast<const T*>(p.x) + base;
   T* out = static_cast<T*>(p.out) + base;
   T* buf = reinterpret_cast<T*>(smem);
+  // the sigmoid table: behind the staged slice, copied in first
+  const uint16_t* tab = flax_sigmoid_table;
+  if constexpr (table_smem<T, ORDER>() > 0) {
+    uint16_t* staged_tab = reinterpret_cast<uint16_t*>(
+        smem + (p.staged ? p.slice_len * sizeof(T) : 0));
+    if (tid == 0) {
+      mbar_init(&bars[CHUNKS]);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+      bulk_load(staged_tab, flax_sigmoid_table, FLAX_TABLE_BYTES,
+                &bars[CHUNKS]);
+    }
+    tab = staged_tab;
+  }
 
   // Pass 1: fp32 sum and sum of squares of the slice.
   float s = 0.0f, ss = 0.0f;
@@ -221,6 +279,7 @@ __global__ void __launch_bounds__(MAX_THREADS)
   // channel's (scale, shift) = (rstd gamma_c, beta_c - mean scale) in K2's
   // order, (mul, beta_c) = (rstd gamma_c, beta_c) in flax's.
   const float mean = stats[0], rstd = stats[1];
+  if constexpr (table_smem<T, ORDER>() > 0) mbar_wait(&bars[CHUNKS]);
   const int ch0 = (int)(group % GROUPS) * (p.c / GROUPS);
   auto channel = [&](int ch, float& a, float& b) {
     a = __fmul_rn(rstd, __ldg(p.gamma + ch));
@@ -235,20 +294,27 @@ __global__ void __launch_bounds__(MAX_THREADS)
       float v[W];
       V::load(src + i, v);
 #pragma unroll
-      for (int j = 0; j < W; ++j) v[j] = site<T, ORDER>(v[j], mean, a, b);
+      for (int j = 0; j < W; ++j) v[j] = site<T, ORDER>(v[j], mean, a, b, tab);
       V::store(out + i, v);
     }
   } else {
     for (int i = tid; i < len; i += nthreads) {
       float a, b;
       channel(ch0 + (lo + i) / p.hw, a, b);
-      from_f(out + i, site<T, ORDER>(to_f(x[i]), mean, a, b));
+      from_f(out + i, site<T, ORDER>(to_f(x[i]), mean, a, b, tab));
     }
   }
   if (p.cluster > 1) cluster_wait();
 }
 
-// Both orders' kernels set up; the clusters the card holds at once of the
+// Fill the current card's sigmoid table once (outside any graph capture: the
+// wrapper's prepare step).
+cudaError_t ensure_flax_table() {
+  return fill_table_once(fill_flax_table, FLAX_TABLE_ENTRIES);
+}
+
+// Both orders' kernels set up (the flax order's bf16 kernel with its
+// table's shared memory too); the clusters the card holds at once of the
 // one that holds fewer.
 template <typename T>
 cudaError_t prepare(int cluster, int threads, int smem, int* max_clusters) {
@@ -257,22 +323,38 @@ cudaError_t prepare(int cluster, int threads, int smem, int* max_clusters) {
                                    cluster, threads, smem, max_clusters);
   if (err == cudaSuccess)
     err = prepare_kernel(group_norm_silu_kernel<T, ORDER_FLAX>, cluster,
-                         threads, smem, &flax);
+                         threads, smem + table_smem<T, ORDER_FLAX>(), &flax);
   if (flax < *max_clusters) *max_clusters = flax;
   return err;
 }
 
-template <typename T>
-cudaError_t launch(const Params& p, int n, int threads, int smem, int order,
+template <typename T, int ORDER>
+cudaError_t launch(const Params& p, int n, int threads, int smem,
                    cudaStream_t stream) {
   cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = launch_config(
-      n * GROUPS * p.cluster, p.cluster, threads, smem, stream, &attr);
-  cudaError_t err =
-      order == ORDER_KERNEL
-          ? cudaLaunchKernelEx(&cfg, group_norm_silu_kernel<T, ORDER_KERNEL>, p)
-          : cudaLaunchKernelEx(&cfg, group_norm_silu_kernel<T, ORDER_FLAX>, p);
+  const cudaLaunchConfig_t cfg =
+      launch_config(n * GROUPS * p.cluster, p.cluster, threads,
+                    smem + table_smem<T, ORDER>(), stream, &attr);
+  const cudaError_t err =
+      cudaLaunchKernelEx(&cfg, group_norm_silu_kernel<T, ORDER>, p);
   return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_order(const Params& p, int n, int threads, int smem,
+                         int order, cudaStream_t stream) {
+  return order == ORDER_KERNEL
+             ? launch<T, ORDER_KERNEL>(p, n, threads, smem, stream)
+             : launch<T, ORDER_FLAX>(p, n, threads, smem, stream);
+}
+
+// Every bf16 value h (by its bits): the table's sigmoid and the direct one.
+__global__ void flax_table_probe_kernel(uint16_t* from_table,
+                                        uint16_t* direct) {
+  const uint32_t b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b > 0xFFFFu) return;
+  from_table[b] = flax_sigmoid_table[flax_table_index(b)];
+  direct[b] = flax_sigmoid_direct(__uint_as_float(b << 16));
 }
 
 }  // namespace
@@ -283,15 +365,29 @@ const char* cuda_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// Set the kernel's attributes on the current device and count the clusters
-// of (cluster, threads, smem) it can hold at once into *max_clusters.
+// Fill the current device's flax-order table if it is not yet, set the
+// kernels' attributes and count the clusters of (cluster, threads, smem)
+// they can hold at once into *max_clusters.
 int group_norm_silu_prepare(int dtype_code, int cluster, int threads, int smem,
                             int* max_clusters) {
+  const cudaError_t err = ensure_flax_table();
+  if (err != cudaSuccess) return (int)err;
   if (dtype_code == 0)
     return (int)prepare<float>(cluster, threads, smem, max_clusters);
   if (dtype_code == 1)
     return (int)prepare<__nv_bfloat16>(cluster, threads, smem, max_clusters);
   return (int)cudaErrorInvalidValue;
+}
+
+// The sigmoid table against the direct computation (both as bf16 bits) at
+// every bf16 value h = bits b: from_table[b], direct[b], 65,536 each.
+int group_norm_silu_flax_table_probe(void* from_table, void* direct,
+                                     void* stream) {
+  cudaError_t err = ensure_flax_table();
+  if (err != cudaSuccess) return (int)err;
+  flax_table_probe_kernel<<<256, 256, 0, (cudaStream_t)stream>>>(
+      (uint16_t*)from_table, (uint16_t*)direct);
+  return (int)cudaGetLastError();
 }
 
 // x, out: (n, c, hw) NCHW-contiguous, fp32 (dtype_code 0) or bf16 (1);
@@ -323,11 +419,11 @@ int group_norm_silu_forward(const void* x, const void* gamma, const void* beta,
   p.staged = smem > 0 && p.vec;
   p.eps = eps;
   if (dtype_code == 0)
-    return (int)launch<float>(p, n, threads, smem, order,
-                              (cudaStream_t)stream);
+    return (int)launch_order<float>(p, n, threads, smem, order,
+                                    (cudaStream_t)stream);
   if (dtype_code == 1)
-    return (int)launch<__nv_bfloat16>(p, n, threads, smem, order,
-                                      (cudaStream_t)stream);
+    return (int)launch_order<__nv_bfloat16>(p, n, threads, smem, order,
+                                            (cudaStream_t)stream);
   return (int)cudaErrorInvalidValue;
 }
 

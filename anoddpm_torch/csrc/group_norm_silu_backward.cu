@@ -26,7 +26,18 @@
 // branches, the centring dz * rstd * gamma_c and the statistics'
 // -(m1 + xhat m2) * rstd, to x's dtype each and sums them in x's dtype, as
 // autograd does where flax's statistics and centring each convert x to fp32
-// (the JAX package's `GroupNorm32(bf16_path=True)`).
+// (the JAX package's `GroupNorm32(bf16_path=True)`).  At a bf16 site s and
+// ds = s (1 - s) are read from a table over y's bits (cluster_staging.cuh,
+// `flax_table_index`): `flax_sigmoid_table` holds both as bf16 bits per
+// slot, filled once per card by the same device functions
+// (`group_norm_silu_backward_prepare` launches `fill_flax_table`), so that
+// the gradients keep their bits while passes 1 and 3 each read one word per
+// element in place of the expf, the division and five roundings.  Each
+// block copies the table into shared memory beside its staged slices as its
+// first bulk copy (timed 9-14% faster a train step than reading it from
+// global memory through L1: scripts/torch_k2b_layouts.py --root on such a
+// copy); `group_norm_silu_backward_flax_table_probe` holds the table
+// against the direct computation at all 65,536 bf16 values of y.
 //
 // Bound: bytes.  The least traffic is one read of x and of grad_out and one
 // write of dx; the arithmetic is a few tens of operations per element.
@@ -50,7 +61,9 @@
 //      and the same m1, m2; rank 0 writes A and B to a small (N, 2, C)
 //      scratch;
 //   3. writes dx from shared memory with 16-byte stores (dz recomputed from
-//      the staged x and grad_out: nothing else goes to device memory);
+//      the staged x and grad_out: nothing else goes to device memory; in
+//      flax's order, whose dz is a value of x's dtype, step 1 writes it over
+//      the staged grad_out and step 3 reads it back);
 //   4. dgamma and dbeta without float atomics: a second launch of one thread
 //      per channel adds the scratch's A and B over n = 0 .. N-1 in order.
 //      (The last cluster of each group could do it in the first launch,
@@ -87,6 +100,40 @@ constexpr int CHUNKS = 2;
 constexpr int ORDER_KERNEL = 0;          // the TPU kernel's order
 constexpr int ORDER_FLAX = 1;            // flax's GroupNorm, SiLU in x's dtype
 constexpr int ORDER_FLAX_BF16_PATH = 2;  // as 1, dx rounded per branch
+
+// The flax order's (s, ds) per slot of y: s's bf16 bits high, ds's low.
+__device__ __align__(16) uint32_t flax_sigmoid_table[FLAX_TABLE_ENTRIES];
+constexpr int FLAX_TABLE_BYTES = FLAX_TABLE_ENTRIES * 4;
+
+// Whether ORDER's kernel at T reads the table, and the table's bytes in a
+// block's dynamic shared memory.
+template <typename T, int ORDER>
+__host__ __device__ constexpr bool uses_table() {
+  return ORDER != ORDER_KERNEL && sizeof(T) == 2;
+}
+template <typename T, int ORDER>
+__host__ __device__ constexpr int table_smem() {
+  return uses_table<T, ORDER>() ? FLAX_TABLE_BYTES : 0;
+}
+
+// ds = s (1 - s) with each op rounded to T, as JAX's logistic rule.
+template <typename T>
+__device__ __forceinline__ float jax_sigmoid_slope(float s) {
+  return round_to<T>(__fmul_rn(s, round_to<T>(__fsub_rn(1.0f, s))));
+}
+
+// The direct (s, ds) of the bf16 value y, packed as in the table.
+__device__ __forceinline__ uint32_t flax_sigmoid_direct(float y) {
+  const float s = jax_sigmoid<__nv_bfloat16>(y);
+  const float ds = jax_sigmoid_slope<__nv_bfloat16>(s);
+  return (__float_as_uint(s) & 0xFFFF0000u) | (__float_as_uint(ds) >> 16);
+}
+
+__global__ void fill_flax_table() {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < FLAX_TABLE_ENTRIES)
+    flax_sigmoid_table[i] = flax_sigmoid_direct(flax_table_h(i));
+}
 
 struct Params {
   const void* x;
@@ -138,20 +185,32 @@ __device__ __forceinline__ float rcp_approx(float v) {
 
 // dz of one element of channel (gam, bet), with mul = rstd * gam, and its
 // xhat: in the plain version's order (xhat = 0 where x = mean, as there) for
-// ORDER_KERNEL, through flax's site in x's dtype T otherwise.
+// ORDER_KERNEL, through flax's site in x's dtype T otherwise (s and ds from
+// the staged table `tab` at a bf16 site).
 template <typename T, int ORDER>
 __device__ __forceinline__ float grad_z(float xv, float gv, float mean,
                                         float rstd, float gam, float bet,
-                                        float mul, float& xhat) {
+                                        float mul, const uint32_t* tab,
+                                        float& xhat) {
   xhat = (xv - mean) * rstd;
   if constexpr (ORDER == ORDER_KERNEL) {
     const float z = fmaf(xhat, gam, bet);
     const float s = rcp_approx(1.0f + ex2_approx(z * -1.44269504f));
     return gv * (s * fmaf(z, 1.0f - s, 1.0f));
   } else {
-    const float y = round_to<T>(flax_norm_value(xv, mean, mul, bet));
-    const float s = jax_sigmoid<T>(y);
-    const float ds = round_to<T>(__fmul_rn(s, round_to<T>(__fsub_rn(1.0f, s))));
+    float y, s, ds;
+    if constexpr (uses_table<T, ORDER>()) {
+      uint32_t bits;
+      y = bf16_round_bits(flax_norm_value(xv, mean, mul, bet), bits);
+      const int i = flax_table_index(bits);
+      const uint32_t e = tab[i];
+      s = __uint_as_float(e & 0xFFFF0000u);
+      ds = __uint_as_float(e << 16);
+    } else {
+      y = round_to<T>(flax_norm_value(xv, mean, mul, bet));
+      s = jax_sigmoid<T>(y);
+      ds = jax_sigmoid_slope<T>(s);
+    }
     return round_to<T>(__fadd_rn(
         round_to<T>(__fmul_rn(gv, s)),
         round_to<T>(__fmul_rn(round_to<T>(__fmul_rn(gv, y)), ds))));
@@ -202,6 +261,19 @@ __device__ __forceinline__ void backward(const Params& p, unsigned char* smem,
   float* part = bet + cpg;             // A | B per (segment, warp of team)
   const int part_b = MAX_WARPS * cpg;  // offset of the B half
   const float mean = __ldg(p.mean + group), rstd = __ldg(p.rstd + group);
+  // the (s, ds) table: behind the per-channel floats, copied in first
+  const uint32_t* tab = flax_sigmoid_table;
+  if constexpr (table_smem<T, ORDER>() > 0) {
+    uint32_t* staged_tab =
+        reinterpret_cast<uint32_t*>(part + 2 * MAX_WARPS * cpg);
+    if (tid == 0) {
+      mbar_init(&bars[CHUNKS]);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+      bulk_load(staged_tab, flax_sigmoid_table, FLAX_TABLE_BYTES,
+                &bars[CHUNKS]);
+    }
+    tab = staged_tab;
+  }
 
   // Units of the slice, chunks of the staging, units per channel plane.
   const int units = len / N, upc = p.hw / N, lo_u = lo / N;
@@ -228,8 +300,14 @@ __device__ __forceinline__ void backward(const Params& p, unsigned char* smem,
   // loads) or global memory
   const T* xsrc = x;
   const T* gsrc = g;
+  // In flax's order dz is a value of T (rounded there), so where the slice
+  // of grad_out is staged pass 1 writes each dz over its g and pass 2 reads
+  // it back in place of the recomputation; K2's order keeps an fp32 dz and
+  // recomputes it.
+  constexpr bool KEEP_DZ = ORDER != ORDER_KERNEL && STAGE == 2;
   if constexpr (STAGE > 0) xsrc = xs;
   if constexpr (STAGE == 2) gsrc = gs;
+  if constexpr (table_smem<T, ORDER>() > 0) mbar_wait(&bars[CHUNKS]);
 
   // Pass 1: A and B of each channel segment of the slice.  Segment s
   // (channel cf + s) is summed by team s % teams, of tsize warps; every
@@ -260,10 +338,12 @@ __device__ __forceinline__ void backward(const Params& p, unsigned char* smem,
       for (int j = 0; j < N; ++j) {
         float xhat;
         const float dz =
-            grad_z<T, ORDER>(xv[j], gv[j], mean, rstd, gm, bt, mul, xhat);
+            grad_z<T, ORDER>(xv[j], gv[j], mean, rstd, gm, bt, mul, tab, xhat);
         av[j] += dz;
         bv[j] = fmaf(dz, xhat, bv[j]);
+        gv[j] = dz;
       }
+      if constexpr (KEEP_DZ) store_n<T, N>(gs + i * N, gv);
     }
     float a = 0.0f, b = 0.0f;
 #pragma unroll
@@ -356,14 +436,19 @@ __device__ __forceinline__ void backward(const Params& p, unsigned char* smem,
       bt = bet[ch];
       mul = __fmul_rn(rstd, gm);
     }
-    float xv[N], gv[N];
+    float xv[N], gv[N];  // with KEEP_DZ gv holds dz
     load_n<T, N>(xsrc + i * N, xv);
     load_n<T, N>(gsrc + i * N, gv);
 #pragma unroll
     for (int j = 0; j < N; ++j) {
-      float xhat;
-      const float dz =
-          grad_z<T, ORDER>(xv[j], gv[j], mean, rstd, gm, bt, mul, xhat);
+      float xhat, dz;
+      if constexpr (KEEP_DZ) {
+        xhat = (xv[j] - mean) * rstd;
+        dz = gv[j];
+      } else {
+        dz = grad_z<T, ORDER>(xv[j], gv[j], mean, rstd, gm, bt, mul, tab,
+                              xhat);
+      }
       xv[j] = grad_x<T, ORDER>(dz, xhat, gm, mul, rstd, m1, m2);
     }
     store_n<T, N>(dx + i * N, xv);
@@ -375,7 +460,8 @@ template <typename T, int ORDER>
 __global__ void __launch_bounds__(MAX_THREADS)
     group_norm_silu_bwd_kernel(const Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ __align__(8) uint64_t bars[CHUNKS];
+  // the chunks' mbarriers, then the table's where it is staged
+  __shared__ __align__(8) uint64_t bars[CHUNKS + (table_smem<T, ORDER>() > 0)];
   __shared__ float stats[2];  // m1, m2
   if (p.staged == 2)
     backward<T, Vec<T>::N, 2, ORDER>(p, smem, bars, stats);
@@ -404,7 +490,7 @@ __global__ void __launch_bounds__(SUM_THREADS)
 }
 
 // Dynamic shared memory of a block: the staged slices and the per-channel
-// floats.
+// floats (then ORDER's table, `table_smem`).
 int dynamic_smem(int c, int stage_bytes) {
   return stage_bytes + channel_floats(c / GROUPS) * (int)sizeof(float);
 }
@@ -416,7 +502,8 @@ cudaError_t launch(const Params& p, int threads, float* dgamma, float* dbeta,
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = launch_config(
       p.n * GROUPS * p.cluster, p.cluster, threads,
-      dynamic_smem(p.c, p.stage_bytes), stream, &attr);
+      dynamic_smem(p.c, p.stage_bytes) + table_smem<T, ORDER>(), stream,
+      &attr);
   cudaError_t err =
       cudaLaunchKernelEx(&cfg, group_norm_silu_bwd_kernel<T, ORDER>, p);
   if (err != cudaSuccess) return err;
@@ -438,7 +525,14 @@ cudaError_t launch_order(const Params& p, int threads, int order,
   return cudaErrorInvalidValue;
 }
 
-// Every order's kernel set up; the clusters the card holds at once of the
+// Fill the current card's (s, ds) table once (outside any graph capture: the
+// wrapper's prepare step).
+cudaError_t ensure_flax_table() {
+  return fill_table_once(fill_flax_table, FLAX_TABLE_ENTRIES);
+}
+
+// Every order's kernel set up (the flax orders' bf16 kernels with their
+// table's shared memory too); the clusters the card holds at once of the
 // one that holds fewest.
 template <typename T>
 cudaError_t prepare(int cluster, int threads, int bytes, int* max_clusters) {
@@ -447,13 +541,25 @@ cudaError_t prepare(int cluster, int threads, int bytes, int* max_clusters) {
                                    cluster, threads, bytes, &kinds[0]);
   if (err == cudaSuccess)
     err = prepare_kernel(group_norm_silu_bwd_kernel<T, ORDER_FLAX>, cluster,
-                         threads, bytes, &kinds[1]);
+                         threads, bytes + table_smem<T, ORDER_FLAX>(),
+                         &kinds[1]);
   if (err == cudaSuccess)
     err = prepare_kernel(group_norm_silu_bwd_kernel<T, ORDER_FLAX_BF16_PATH>,
-                         cluster, threads, bytes, &kinds[2]);
+                         cluster, threads,
+                         bytes + table_smem<T, ORDER_FLAX_BF16_PATH>(),
+                         &kinds[2]);
   *max_clusters = kinds[0];
   for (int k : kinds) *max_clusters = k < *max_clusters ? k : *max_clusters;
   return err;
+}
+
+// Every bf16 value y (by its bits): the table's (s, ds) and the direct one.
+__global__ void flax_table_probe_kernel(uint32_t* from_table,
+                                        uint32_t* direct) {
+  const uint32_t b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b > 0xFFFFu) return;
+  from_table[b] = flax_sigmoid_table[flax_table_index(b)];
+  direct[b] = flax_sigmoid_direct(__uint_as_float(b << 16));
 }
 
 }  // namespace
@@ -464,18 +570,32 @@ const char* cuda_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// Set the kernels' attributes on the current device and count the clusters
-// of (cluster, threads, staging bytes) at c channels that each can hold at
-// once into *max_clusters (the least of them).
+// Fill the current device's flax-order table if it is not yet, set the
+// kernels' attributes and count the clusters of (cluster, threads, staging
+// bytes) at c channels that each can hold at once into *max_clusters (the
+// least of them).
 int group_norm_silu_backward_prepare(int dtype_code, int c, int cluster,
                                      int threads, int smem,
                                      int* max_clusters) {
   const int bytes = dynamic_smem(c, smem);
+  const cudaError_t err = ensure_flax_table();
+  if (err != cudaSuccess) return (int)err;
   if (dtype_code == 0)
     return (int)prepare<float>(cluster, threads, bytes, max_clusters);
   if (dtype_code == 1)
     return (int)prepare<__nv_bfloat16>(cluster, threads, bytes, max_clusters);
   return (int)cudaErrorInvalidValue;
+}
+
+// The table against the direct computation at every bf16 value y = bits b:
+// from_table[b], direct[b] (s's bf16 bits high, ds's low), 65,536 each.
+int group_norm_silu_backward_flax_table_probe(void* from_table, void* direct,
+                                              void* stream) {
+  cudaError_t err = ensure_flax_table();
+  if (err != cudaSuccess) return (int)err;
+  flax_table_probe_kernel<<<256, 256, 0, (cudaStream_t)stream>>>(
+      (uint32_t*)from_table, (uint32_t*)direct);
+  return (int)cudaGetLastError();
 }
 
 // The arguments of one call, packed by the wrapper

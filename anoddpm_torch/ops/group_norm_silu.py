@@ -26,6 +26,10 @@ dtype, with JAX's gradient; `bf16_path` is `GroupNorm32(bf16_path=...)`,
 which changes only where the backward rounds.  On the card it is a mode of
 the same kernels, K2 and K2b, counted apart (`flax_launches`); on the CPU
 its plain version is `_flax_site` and its autograd (`group_norm_silu_flax`).
+At a bf16 site both kernels read the flax order's SiLU from a table over
+the bf16 value h (filled once per card at the prepare step, checked at all
+65,536 h by `flax_table_probe`); `_flax_table_lookup` is its plain
+counterpart, which the tests hold against the op-by-op `_JaxSiLU`.
 """
 
 from __future__ import annotations
@@ -179,6 +183,62 @@ def _plain_backward(x: torch.Tensor, grad_out: torch.Tensor,
     return dx.to(x.dtype), dgamma, dbeta
 
 
+def _jax_logistic(x):
+    """JAX's logistic of x on the CPU, in x's dtype: `torch.sigmoid` in fp32,
+    1 / (1 + exp(-x)) op by op in a narrower dtype."""
+    if x.dtype in (torch.float32, torch.float64):
+        return torch.sigmoid(x)
+    return 1 / (1 + torch.exp(-x))
+
+
+# The flax order's table over the bf16 value h (csrc/cluster_staging.cuh,
+# `flax_table_index`): per sign, slot 0 for |h| < 2^-8, slots 1..1920 for
+# the bf16 values of |h| in [2^-8, 2^7), 1921 for |h| >= 2^7 and inf, 1922
+# for NaN.
+FLAX_TABLE_ROW = 1923
+_FLAX_TABLE_LO = 119 << 7            # bits of 2^-8, sign off
+_BF16_INF = 0x7F80
+
+
+def _flax_table_index(bits: torch.Tensor) -> torch.Tensor:
+    """The slot of each bf16 value given by its 16 bits (int32 0..65535)."""
+    e = bits & 0x7FFF
+    k = (e - _FLAX_TABLE_LO + 1).clamp(0, 1921) + (e > _BF16_INF).int()
+    return (bits >> 15) * FLAX_TABLE_ROW + k
+
+
+def _bf16_from_bits(bits: torch.Tensor) -> torch.Tensor:
+    """The bf16 values with the given 16 bits (int32)."""
+    return (bits << 16).view(torch.float32).to(torch.bfloat16)
+
+
+def _flax_table_h() -> torch.Tensor:
+    """The bf16 h that fills each slot: +-0, the range's values, +-inf, NaN."""
+    k = torch.arange(FLAX_TABLE_ROW, dtype=torch.int32)
+    e = torch.where(k == 0, 0, _FLAX_TABLE_LO + k - 1)
+    e = torch.where(k == 1921, _BF16_INF, e)
+    e = torch.where(k == 1922, 0x7FC0, e)
+    return _bf16_from_bits(torch.cat([e, e | 0x8000]))
+
+
+@functools.cache
+def _plain_flax_table():
+    """Plain version of the kernels' tables: per slot the bf16 (s, ds) of
+    its h, op by op as `_JaxSiLU`."""
+    s = _jax_logistic(_flax_table_h())
+    return s, s * (1 - s)
+
+
+def _flax_table_lookup(h: torch.Tensor):
+    """(s, ds, out) of the bf16 values h, s and ds read from the plain table
+    and out = h s: the kernels' lookup on the CPU (the tests hold it against
+    `_JaxSiLU`)."""
+    bits = h.view(torch.int16).int() & 0xFFFF
+    i = _flax_table_index(bits).long()
+    s, ds = (t[i] for t in _plain_flax_table())
+    return s, ds, h * s
+
+
 class _JaxSiLU(torch.autograd.Function):
     """x * logistic(x) as the JAX package computes it on the CPU: in fp32
     `torch.sigmoid`; in a narrower dtype 1 / (1 + exp(-x)), each op rounded
@@ -189,8 +249,7 @@ class _JaxSiLU(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x):
-        s = (torch.sigmoid(x) if x.dtype in (torch.float32, torch.float64)
-             else 1 / (1 + torch.exp(-x)))
+        s = _jax_logistic(x)
         ctx.save_for_backward(x, s)
         return x * s
 
@@ -283,6 +342,9 @@ def _kernel():
     prepare = lib.group_norm_silu_prepare
     prepare.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
     prepare.restype = ctypes.c_int
+    probe = lib.group_norm_silu_flax_table_probe
+    probe.argtypes = [ctypes.c_void_p] * 3
+    probe.restype = ctypes.c_int
     return lib, fn
 
 
@@ -431,6 +493,9 @@ def _backward_kernel():
     prepare = lib.group_norm_silu_backward_prepare
     prepare.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
     prepare.restype = ctypes.c_int
+    probe = lib.group_norm_silu_backward_flax_table_probe
+    probe.argtypes = [ctypes.c_void_p] * 3
+    probe.restype = ctypes.c_int
     return lib, fn
 
 
@@ -580,3 +645,26 @@ def group_norm_silu_flax(x: torch.Tensor, gamma: torch.Tensor,
     """`group_norm_silu` in the flax order: the JAX package's
     `nn.silu(GroupNorm32(bf16_path)(x))` on NCHW x."""
     return group_norm_silu(x, gamma, beta, eps, "flax", bf16_path)
+
+
+def flax_table_probe(device: int = 0):
+    """Both kernels' flax-order tables against their direct computation at
+    all 65,536 bf16 values of h, on card `device`: {"s": (table, direct)} as
+    int16 bf16 bits from K2's library, {"s_ds": (table, direct)} as int32
+    (s's bits high, ds's low) from K2b's, indexed by h's bits.  Fills the
+    tables first if the card's are not filled yet."""
+    dev = torch.device("cuda", device)
+    stream = torch._C._cuda_getCurrentRawStream(device)
+    out = {}
+    for key, dtype, (lib, _), entry in (
+            ("s", torch.int16, _kernel(), "group_norm_silu_flax_table_probe"),
+            ("s_ds", torch.int32, _backward_kernel(),
+             "group_norm_silu_backward_flax_table_probe")):
+        pair = (torch.empty(65536, dtype=dtype, device=dev),
+                torch.empty(65536, dtype=dtype, device=dev))
+        with torch.cuda.device(device):
+            status = getattr(lib, entry)(pair[0].data_ptr(), pair[1].data_ptr(),
+                                         stream)
+        _build.check(lib, status, entry)
+        out[key] = pair
+    return out

@@ -2799,6 +2799,37 @@ def flax_site_case(shape, dtype, bf16_path, gen):
     return diff.max().item(), same, dx_err, dx_same
 
 
+def flax_table_check():
+    """The flax order's tables on the card (K2's s(h), K2b's (s, ds)) against
+    the device functions they replace, at all 65,536 bf16 values of h, bit
+    for bit; and the card's own count of the h where (s, ds) is none of the
+    three constants (1/2, 1/4), (1, 0), (0, 0), all of which must lie in the
+    table's range |h| in [2^-8, 2^7).  Returns that count."""
+    from anoddpm_torch.ops import group_norm_silu as gn
+    probe = gn.flax_table_probe(0)
+    for key, (table, direct) in probe.items():
+        bad = int((table != direct).sum())
+        require(bad == 0, f"flax table {key}: {bad} of 65,536 h differ from "
+                          "the direct computation")
+    bits = torch.arange(65536, dtype=torch.int32, device=DEVICE)
+    words = probe["s_ds"][1]
+    s = (words & -65536).view(torch.float32)
+    ds = (words << 16).view(torch.float32)
+    h = (bits << 16).view(torch.float32)
+    const = (((s == 0.5) & (ds == 0.25)) | ((s == 1) & (ds == 0))
+             | ((s == 0) & (ds == 0)) | torch.isnan(h))
+    e = bits & 0x7FFF
+    inside = (e >= 119 << 7) & (e < 134 << 7)
+    varying = int((~const).sum())
+    require(bool((inside | const).all()),
+            "flax table: a varying (s, ds) outside |h| in [2^-8, 2^7)")
+    top = h[~const].abs().max().item()
+    log(f"flax table on the card: K2's s(h) and K2b's (s, ds) bit-equal to "
+        f"the device functions at all 65,536 bf16 h; {varying} h with (s, ds) "
+        f"off the three constants (2,916 on the CPU), |h| up to {top}")
+    return varying
+
+
 def flax_order_times(sites_of):
     """The flax order of K2 per UNet forward at the detection batch and of
     K2b per train step at the training batch, at each config's sites in
@@ -3008,6 +3039,7 @@ def measuring_path(card):
         f"bit-equal in >= {worst[1]:.4f} of elements; dx max|d| "
         f"{worst[2]:.3e} of its largest magnitude, bit-equal in >= "
         f"{worst[3]:.4f}; bit-identical backward reruns")
+    flax_table_check()
     flax_rows = flax_order_times(sites_of)
     for row in flax_rows:
         row["max_abs_err"] = worst[0] if "backward" not in row["name"] \

@@ -25,7 +25,10 @@
 #            `--norm-order flax` (the JAX package's norm order; each seed's
 #            entries in its own results/torch_f3_flax_order_seeds<S>.json,
 #            logs flaxorder_seed<S>.log); --together starts the seeds'
-#            processes at once on the one card and waits for all of them.
+#            processes at once on the one card and waits for all of them,
+#            each writing its entries to a file of its own
+#            (`--own-file`: results/torch_seed_replication_seeds<S>.json
+#            in the default order).
 # diffuse and longer need train's model, f3 needs dense's; nothing under
 # build/ outlives a remote call, so a call runs train..longer, dense..f3 or
 # seeds with the seeds it trains (two one after another fit in a call of
@@ -91,8 +94,10 @@ seed_cmd() {
   [ ${#seed_order[@]} -gt 0 ] || [ -e "$out/$seeds_file" ] \
     || cp "$seeds_file" "$out/$seeds_file"
   cmd=(python3 -m $m.seed_replication "$1" --skip=paper128 "${seed_order[@]}"
-       --root "$root")
+       "${own_file[@]}" --root "$root")
 }
+own_file=()
+[ ${#together[@]} -eq 0 ] || own_file=(--own-file)
 for stage in "${expanded[@]}"; do
   if [ "$stage" = together ]; then
     # one process per seed, all started now; each seed's log and rc

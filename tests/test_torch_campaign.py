@@ -437,3 +437,87 @@ def test_two_sample_verdicts():
     assert out["verdict"] == "a fault in the spread"
     one = band.two_sample({"c/seed1": jax["c/seed1"]}, jax, ["c"])
     assert one["cells"] == {} and one["verdict"] == "no cell with two seeds a side"
+
+
+def test_own_file_names_one_results_file_per_process(tmp_path):
+    """`--own-file` writes a default-order seed's entries to a file of its
+    own (seeds trained at once on one card), leaving the shared file
+    alone; without it the shared file takes them."""
+    assert seed_replication.results_name([5], own_file=True) == \
+        "results/torch_seed_replication_seeds5.json"
+    assert seed_replication.results_name([5, 6], "flax", own_file=True) == \
+        "results/torch_f3_flax_order_seeds56.json"
+
+    def metric(args, root_dir, em, sched, device):
+        return {m: 0.5 for m in seed_replication.METRICS}
+
+    with mock.patch.object(seed_replication, "ensure_trained",
+                           lambda c, s, r, d, o: f"{c}_s{s}"), \
+            mock.patch.object(seed_replication, "_load_eval_model",
+                              lambda r, t, device: ({}, None, None)), \
+            mock.patch.object(seed_replication, "anomalous_metric_calculation",
+                              metric):
+        res = seed_replication.main(["7", "--skip=paper128", "--own-file",
+                                     "--root", str(tmp_path)], device="cpu")
+    written = load_results(str(tmp_path),
+                           "results/torch_seed_replication_seeds7.json")
+    assert written == res and "s2d64_ddim20_eta1/seed7" in res
+    assert not (tmp_path / SEED_REPLICATION).exists()
+
+
+def _ten_seeds(root, ddim20_dice, ddim20_auc_shift):
+    """The port's seeds 0-4 in the shared file and 5-9 one file each: in
+    every s2d64 cell of the JAX file, JAX seed s % 5's values (a 1e-4 step
+    per seed apart), except DDIM-20, whose Dice takes `ddim20_dice` added
+    to the JAX mean and whose AUC moves by `ddim20_auc_shift`."""
+    with open(JAX_SEED_RESULTS) as f:
+        committed = json.load(f)
+    cells = [c for c in seed_replication.MODELS["256syn64s2d"]
+             if f"{c}/aggregate" in committed]
+
+    def entry(cell, s):
+        jax = committed[f"{cell}/seed{s % 5}"]
+        out = {"auc": jax["auc"] + 1e-4 * s, "dice": jax["dice"] + 1e-4 * s,
+               "iou": 0.1, "ssim": 0.6}
+        if cell == "s2d64_ddim20_eta1":
+            out["dice"] = (committed[f"{cell}/aggregate"]["dice"]["mean"]
+                           + ddim20_dice[s])
+            out["auc"] += ddim20_auc_shift
+        return out
+
+    save_results(str(root), SEED_REPLICATION,
+                 {f"{c}/seed{s}": entry(c, s) for c in cells for s in range(5)})
+    for s in range(5, 10):
+        save_results(str(root), f"results/torch_seed_replication_seeds{s}.json",
+                     {f"{c}/seed{s}": entry(c, s) for c in cells})
+    return cells
+
+
+NARROW10 = [0.003, -0.004, 0.002, 0.0, -0.002, 0.004, -0.003, 0.001, -0.001,
+            0.0015]
+WIDE10 = [-0.03, 0.03, -0.01, 0.0, 0.04, -0.035, 0.025, 0.01, -0.02, 0.035]
+
+
+@pytest.mark.parametrize("dice,auc_shift,verdict", [
+    (WIDE10, 0.0, "open"),
+    (NARROW10, 0.0, "closed"),
+    (NARROW10, 0.2, "new finding"),
+])
+def test_band_reads_ten_port_seeds_and_gives_f3_verdict(tmp_path, dice,
+                                                        auc_shift, verdict):
+    """`band --out` merges the shared file with the per-process files (ten
+    port seeds a cell), compares them with the JAX five and gives F3's
+    verdict by the rule of PERF.md section 2."""
+    _ten_seeds(tmp_path, dice, auc_shift)
+    name = "results/torch_f3_n10_two_sample.json"
+    out = band.main(["--root", str(tmp_path), "--out", name])
+    assert load_results(str(tmp_path), name) == json.loads(json.dumps(out))
+    assert out["files"] == [SEED_REPLICATION] + [
+        f"results/torch_seed_replication_seeds{s}.json" for s in range(5, 10)]
+    row = out["cells"]["s2d64_ddim20_eta1"]
+    assert row["port_seeds"] == list(range(10))
+    assert row["dice"]["port"]["std"] == pytest.approx(np.std(dice, ddof=1))
+    assert len(out["holm"]["f"]) == len(out["holm"]["welch"]) == 16
+    assert out["f3_verdict"].startswith(verdict)
+    if verdict == "new finding":
+        assert "s2d64_ddim20_eta1/auc" in out["f3_verdict"]
