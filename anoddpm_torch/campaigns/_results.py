@@ -18,6 +18,7 @@ DENSE_SWEEP = "results/torch_dense_sweep_full.json"
 F3_S2D64 = "results/torch_f3_s2d64.json"
 F3_TWO_SAMPLE = "results/torch_f3_two_sample.json"
 F3_FLAX_ORDER = "results/torch_f3_flax_order_two_sample.json"
+F3_JAX_RNG_PAIRED = "results/torch_f3_jax_rng_paired.json"
 
 
 def load_results(root_dir: str, name: str) -> Dict[str, Any]:

@@ -22,9 +22,18 @@ seeds (i) and against the port's default-order seeds of DIR's
 ``results/torch_seed_replication.json`` (ii), both by the rule above, and
 writes both with the verdict to ``results/torch_f3_flax_order_two_sample.json``.
 
-The files are read as data; nothing of the JAX side is imported.  The two
-packages draw from different RNGs (threefry, Philox), so one seed of the
-port is not one seed of the JAX package: only the samples compare."""
+F3 paired (`f3_paired_verdict`): ``... band --jax-rng`` pairs each seed S
+the port trained on the JAX package's own draws (`rng: "jax"`, DIR's
+``results/torch_f3_jax_rng_seeds*.json``) with JAX seed S, for the seeds
+the epoch-0 gate marks paired (``results/torch_jax_streams_epoch0.json``,
+`scripts/torch_jax_streams_epoch0.py`), and writes the paired tests, P1 and
+the verdict to ``results/torch_f3_jax_rng_paired.json``.
+
+The files are read as data; nothing of the JAX side is imported.  Under
+the port's default `rng: "torch"` the two packages draw from different
+RNGs (Philox, threefry), so one seed of the port is not one seed of the
+JAX package and only the samples compare; under `rng: "jax"` they draw
+the same numbers, and seed S pairs with seed S."""
 
 from __future__ import annotations
 
@@ -38,10 +47,10 @@ from typing import Dict, Mapping, Optional, Sequence
 import numpy as np
 from scipy import stats
 
-from ._results import (F3_FLAX_ORDER, F3_TWO_SAMPLE, SEED_REPLICATION,
-                       save_results)
-from .seed_replication import (FLAX_ORDER_RESULTS, MODELS, OWN_FILE_RESULTS,
-                               seed_entries)
+from ._results import (F3_FLAX_ORDER, F3_JAX_RNG_PAIRED, F3_TWO_SAMPLE,
+                       SEED_REPLICATION, save_results)
+from .seed_replication import (FLAX_ORDER_RESULTS, JAX_RNG_RESULTS, MODELS,
+                               OWN_FILE_RESULTS, seed_entries)
 
 K = 2.0
 CELL = "paper128_ddpm200"
@@ -263,6 +272,111 @@ def flax_order_main(root: str, jax_path: str) -> Dict[str, object]:
     return out
 
 
+# the epoch-0 gate that decides, before the JAX-stream seeds are scored,
+# which of them pair with their JAX twin
+EPOCH0_GATE = "results/torch_jax_streams_epoch0.json"
+# the fewest paired seeds the paired rule reads
+MIN_PAIRED = 4
+
+
+def gate_seeds(path: str) -> list:
+    """The seeds the epoch-0 gate file marks paired."""
+    with open(path) as f:
+        gate = json.load(f)
+    return sorted(int(s) for s, row in gate["seeds"].items() if row["paired"])
+
+
+def paired_tests(port: Mapping, jax: Mapping, cells: Sequence[str],
+                 seeds: Sequence[int]) -> Dict[str, Dict]:
+    """Per cell and metric, over `seeds` (each in both files): the
+    differences port(S) - JAX(S), their mean and largest |value|, Pearson's
+    r of the two sides, the paired t-test's two-sided p, the JAX side's
+    sample std (ddof 1) over the same seeds and mean|d| / that std."""
+    out: Dict[str, Dict] = {}
+    for cell in cells:
+        ours, theirs = seed_entries(port, cell), seed_entries(jax, cell)
+        use = [s for s in seeds if s in ours and s in theirs]
+        if len(use) < 2:
+            continue
+        out[cell] = {"seeds": use}
+        for m in TWO_SAMPLE_METRICS:
+            a = np.array([ours[s][m] for s in use], np.float64)
+            b = np.array([theirs[s][m] for s in use], np.float64)
+            d = a - b
+            sigma = float(b.std(ddof=1))
+            out[cell][m] = {
+                "port": a.tolist(), "jax": b.tolist(), "diff": d.tolist(),
+                "mean": float(d.mean()), "max_abs": float(np.abs(d).max()),
+                "pearson_r": float(stats.pearsonr(a, b)[0]),
+                "paired_t_p": float(stats.ttest_rel(a, b).pvalue),
+                "sigma_jax": sigma,
+                "mean_abs_over_sigma": float(np.abs(d).mean() / sigma)}
+    return out
+
+
+def f3_paired_verdict(res: Mapping) -> str:
+    """F3's paired verdict by the rule of PERF.md section 2: "open: the
+    streams could not be reproduced" under MIN_PAIRED seeds; "open: the
+    pairs do not hold" where the median over the pairs of mean|d| /
+    sigma_JAX exceeds 1; else "a fault in the port" (naming what) where P1
+    has p < ALPHA or a paired t-test rejects under Holm; else "closed: the
+    draws"."""
+    if len(res["seeds"]) < MIN_PAIRED:
+        return "open: the streams could not be reproduced"
+    if res["median_mean_abs_over_sigma"] > 1.0:
+        return "open: the pairs do not hold"
+    faults = ([f"P1 {res['p1']['named']} F p {res['p1']['f_p']:.4f}"]
+              if res["p1"]["f_p"] < ALPHA else [])
+    faults += [f"paired t {k}" for k, v in res["holm"].items() if v["rejected"]]
+    return "a fault in the port: " + ", ".join(faults) if faults else \
+        "closed: the draws"
+
+
+def jax_rng_main(root: str, jax_path: str) -> Dict[str, object]:
+    """F3 paired: the JAX-stream seeds under `root` against their JAX twins,
+    written to `F3_JAX_RNG_PAIRED` under `root`."""
+    paths = sorted(glob.glob(os.path.join(root, JAX_RNG_RESULTS.format("*"))))
+    if not paths:
+        raise FileNotFoundError(f"no {JAX_RNG_RESULTS.format('*')} under {root}")
+    port = merged_seed_files(paths)
+    with open(jax_path) as f:
+        jax = json.load(f)
+    seeds = gate_seeds(os.path.join(root, EPOCH0_GATE))
+    cells = [c for c in MODELS["256syn64s2d"]
+             if seed_entries(jax, c) and seed_entries(port, c)]
+    table = paired_tests(port, jax, cells, seeds)
+    family = {f"{c}/{m}": table[c][m]["paired_t_p"]
+              for c in table for m in TWO_SAMPLE_METRICS}
+    cell, metric = F3_CELL
+    ours, theirs = seed_entries(port, cell), seed_entries(jax, cell)
+    p1 = compare([ours[s][metric] for s in seeds if s in ours],
+                 [theirs[s][metric] for s in sorted(theirs)],
+                 ("port_jax_rng", "jax"))
+    ratios = [table[c][m]["mean_abs_over_sigma"] for c in table
+              for m in TWO_SAMPLE_METRICS]
+    out = {"files": [os.path.relpath(p, root) for p in paths],
+           "seeds": seeds, "alpha": ALPHA, "cells": table,
+           "holm": holm(family) if family else {},
+           "p1": {"named": "/".join(F3_CELL), **p1},
+           "median_mean_abs_over_sigma": float(np.median(ratios)) if ratios
+           else float("inf")}
+    out["verdict"] = f3_paired_verdict(out)
+    save_results(root, F3_JAX_RNG_PAIRED, out)
+    for c, row in table.items():
+        for m in TWO_SAMPLE_METRICS:
+            r = row[m]
+            print(f"{c} {m}: mean d {r['mean']:+.4f}, max |d| "
+                  f"{r['max_abs']:.4f}, r {r['pearson_r']:+.3f}, paired p "
+                  f"{r['paired_t_p']:.4f} (Holm "
+                  f"{out['holm'][f'{c}/{m}']['adjusted_p']:.4f}), "
+                  f"mean|d|/sigma_JAX {r['mean_abs_over_sigma']:.2f}")
+    print(f"P1 {out['p1']['named']}: F {p1['f']:.2f}, p {p1['f_p']:.4f}; "
+          f"median mean|d|/sigma_JAX {out['median_mean_abs_over_sigma']:.3f}; "
+          f"paired seeds {seeds}")
+    print(f"F3 paired: {out['verdict']}")
+    return out
+
+
 def _print(what: str, out: Mapping) -> None:
     a, b = out["sides"]
     print(what)
@@ -289,7 +403,12 @@ def main(argv=None):
     p.add_argument("--flax-order", action="store_true",
                    help="F3's rounding A/B: the flax-order seeds against the "
                         "JAX seeds and the default-order seeds")
+    p.add_argument("--jax-rng", action="store_true",
+                   help="F3 paired: the seeds trained on the JAX package's "
+                        "draws against their JAX twins")
     ns = p.parse_args(sys.argv[1:] if argv is None else argv)
+    if ns.jax_rng:
+        return jax_rng_main(ns.root, ns.jax)
     if ns.flax_order:
         return flax_order_main(ns.root, ns.jax)
     paths = port_seed_files(ns.root)

@@ -1,7 +1,7 @@
 """Seed-replicated quality evidence:
 ``python -m anoddpm_torch.campaigns.seed_replication [seeds...]
-[--skip=a,b] [--norm-order kernel|flax] [--own-file] [--root DIR]`` (seeds
-0 1 2 3 4 by default).
+[--skip=a,b] [--norm-order kernel|flax] [--rng torch|jax] [--own-file]
+[--root DIR]`` (seeds 0 1 2 3 4 by default).
 
 Counterpart of `scripts/seed_replication.py`.  Each model cell trains
 fresh seeds end to end through `train.train` (8 steps per dispatch, token
@@ -21,6 +21,14 @@ so that processes of different seeds can run at once.  `--own-file` does
 the same in the default order: the entries go to
 ``results/torch_seed_replication_seeds{seeds}.json``
 (`campaigns.band` reads them beside the shared file).
+
+`--rng jax` trains the seeds on the JAX package's own draws (`rng: "jax"`:
+flax's init, the trainer's and the detector's threefry keys) in the flax
+order, the JAX five's numerics (`NORM_ORDERS["jax_rng"]`; the kernel order
+is refused), under the tokens ``{config}_s{seed}_jaxrng``, and writes
+their entries to ``results/torch_f3_jax_rng_seeds{seeds}.json``, one file
+per process: seed S of the port is then seed S of the JAX package
+(`campaigns.band --jax-rng` pairs them).
 """
 
 from __future__ import annotations
@@ -93,7 +101,11 @@ SUBSTEPS = 8
 NORM_ORDERS = {"kernel": ({}, ""),
                "flax": ({"norm_impl": "flax", "bf16_norm": False,
                          "pallas_norm": False}, "_flaxorder")}
+# the flax order on the JAX package's own random streams: the recipe that
+# pairs seed S of the port with seed S of the JAX package
+NORM_ORDERS["jax_rng"] = ({**NORM_ORDERS["flax"][0], "rng": "jax"}, "_jaxrng")
 FLAX_ORDER_RESULTS = "results/torch_f3_flax_order_seeds{}.json"
+JAX_RNG_RESULTS = "results/torch_f3_jax_rng_seeds{}.json"
 OWN_FILE_RESULTS = "results/torch_seed_replication_seeds{}.json"
 
 
@@ -101,8 +113,10 @@ def results_name(seeds: Sequence[int], norm_order: str = "kernel",
                  own_file: bool = False) -> str:
     """The results file of a run of `seeds` in `norm_order`: the shared
     file of the default order, unless `own_file` asks for one per process
-    (always so in the flax order)."""
+    (always so in the flax order and on the JAX streams)."""
     tag = "".join(str(s) for s in seeds)
+    if norm_order == "jax_rng":
+        return JAX_RNG_RESULTS.format(tag)
     if norm_order != "kernel":
         return FLAX_ORDER_RESULTS.format(tag)
     return OWN_FILE_RESULTS.format(tag) if own_file else SEED_REPLICATION
@@ -226,15 +240,24 @@ def main(argv=None, device: DeviceLike = None):
     p.add_argument("seeds", nargs="*", type=int)
     p.add_argument("--skip", default="",
                    help="comma-separated substrings of cells to leave out")
-    p.add_argument("--norm-order", choices=sorted(NORM_ORDERS),
-                   default="kernel")
+    p.add_argument("--norm-order", choices=("flax", "kernel"),
+                   default=None, help="kernel (the default) or flax")
+    p.add_argument("--rng", choices=("torch", "jax"), default="torch",
+                   help="jax: train and score on the JAX package's draws, "
+                        "in the flax order")
     p.add_argument("--own-file", action="store_true",
                    help="write this process's entries to a file of its own")
     p.add_argument("--root", default=".")
     ns = p.parse_args(sys.argv[1:] if argv is None else argv)
+    norm_order = ns.norm_order or "kernel"
+    if ns.rng == "jax":
+        if ns.norm_order == "kernel":
+            p.error("the JAX-stream seeds train in the JAX package's own "
+                    "norm order (--norm-order flax)")
+        norm_order = "jax_rng"
     return run(ns.seeds or [0, 1, 2, 3, 4],
                [s for s in ns.skip.split(",") if s], ns.root, device=device,
-               norm_order=ns.norm_order, own_file=ns.own_file)
+               norm_order=norm_order, own_file=ns.own_file)
 
 
 if __name__ == "__main__":

@@ -18,7 +18,7 @@ from collections import defaultdict
 from typing import Any, Dict, List
 
 # The keys of the reference's configs and the JAX package's extensions
-# (the set of `anoddpm_tpu/config.py:KNOWN_KEYS`), and one of the port's own.
+# (the set of `anoddpm_tpu/config.py:KNOWN_KEYS`), and the port's own.
 KNOWN_KEYS = {
     "img_size", "Batch_Size", "EPOCHS", "T", "base_channels", "beta_schedule",
     "channel_mults", "loss-type", "loss_weight", "train_start", "lr",
@@ -35,6 +35,10 @@ KNOWN_KEYS = {
     # the port's own: which norms the UNet runs, kernel K2 ("kernel") or the
     # JAX package's composition ("flax"; models/unet.py)
     "norm_impl",
+    # the port's own: which random streams a run draws from, torch's
+    # ("torch", the default) or the JAX package's threefry keys ("jax";
+    # streams.py, compat/jax_random.py)
+    "rng",
     "_note",  # free-form provenance comment in shipped configs
 }
 

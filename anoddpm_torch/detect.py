@@ -46,6 +46,7 @@ import torch
 from . import diffusion as dmod
 from . import graphs
 from . import metrics as M
+from . import streams
 from . import visualize as vz
 from .checkpoint import load_parameters
 from .config import resolve_in_channels
@@ -107,7 +108,7 @@ def _load_eval_model(root_dir: str, token: str, use_checkpoint: bool = False,
     return args, model.eval(), schedule_from_args(args).to(device)
 
 
-def evaluate_anomaly_batch(em, sched, images, masks, generator: torch.Generator,
+def evaluate_anomaly_batch(em, sched, images, masks, generator,
                            noise_sampler, t_distance: int = 200,
                            fb=None) -> Dict[str, list]:
     """Metrics and NHWC reconstruction for one (S, H, W, C) batch of
@@ -145,7 +146,10 @@ def anomalous_metric_calculation(args=None, root_dir: str = ".",
 
     `volume_batch` (or args["volume_batch"]) runs the slices of that many
     volumes as one batch; `args["recon_repeats"]` averages that many
-    reconstructions before the square-error map."""
+    reconstructions before the square-error map.  The stream is seeded
+    args' seed + 1; under `rng: "jax"` it is `key(seed + 1)`, split once
+    per volume group and, with repeats, once more into one key per
+    reconstruction (`anoddpm_tpu/detect.py:184-210`)."""
     device = resolve_device(device)
     if em is None:
         args, em, sched = _load_eval_model(root_dir, token, use_checkpoint,
@@ -180,10 +184,9 @@ def anomalous_metric_calculation(args=None, root_dir: str = ".",
         one = fb
 
         def fb(x, g):
-            return sum(one(x, g) for _ in range(repeats)) / repeats
+            return sum(one(x, s) for s in streams.of(g).split(repeats)) / repeats
 
-    generator = torch.Generator(device=device)
-    generator.manual_seed(int(args.get("seed", 0) or 0) + 1)
+    generator = streams.make(args, int(args.get("seed", 0) or 0) + 1, device)
     totals = {k: [] for k in METRIC_NAMES}
     start = time.time()
     vb = max(int(volume_batch or args.get("volume_batch") or 1), 1)
@@ -193,8 +196,9 @@ def anomalous_metric_calculation(args=None, root_dir: str = ".",
         msks = [np.asarray(s["mask"]) for s in group]
         imgs = [a[None] if a.ndim == 3 else a for a in imgs]
         msks = [a[None] if a.ndim == 3 else a for a in msks]
+        generator, sub = streams.of(generator).split()
         batch_out, _ = evaluate_anomaly_batch(
-            em, sched, np.concatenate(imgs), np.concatenate(msks), generator,
+            em, sched, np.concatenate(imgs), np.concatenate(msks), sub,
             noise_sampler, t_distance, fb=fb)
         for k, v in batch_out.items():
             totals[k].extend(v)
@@ -249,7 +253,8 @@ def sharded_anomalous_metrics(args, em, sched, mesh: Optional[Mesh],
     `chunk_per_device` x world_size slices (the last wrap-padded to that
     size), each chunk split over the ranks and reconstructed by
     `forward_backward` at lambda = `t_distance` (clamped to T) from a
-    generator seeded 17 + the chunk's first slice on every rank.  Rank 0
+    generator seeded 17 + the chunk's first slice on every rank (under
+    `rng: "jax"` the key key(17 + that slice), as in JAX).  Rank 0
     gathers the reconstructions, scores them with
     `metrics.batched_anomaly_metrics`, writes metrics/args{n}.csv and
     returns the summary; the other ranks return None."""
@@ -270,7 +275,7 @@ def sharded_anomalous_metrics(args, em, sched, mesh: Optional[Mesh],
     for start in range(0, n_slices, chunk):
         block = images[start:start + chunk]
         got = block.shape[0]
-        generator = torch.Generator(device=device).manual_seed(17 + start)
+        generator = streams.make(args, 17 + start, device)
         recon = _sharded_recon(fb, _wrap_pad(block, chunk, images), mesh,
                                device, generator)
         recons.append(recon[:got])
@@ -315,6 +320,7 @@ def detection_A(args, em, sched, x_0, mask, file_id, root_dir: str = ".",
     freq={i}-t={lambda}.png.  The q-jump goes to lambda - 1, as in
     `forward_backward` (the reference's method A jumps to lambda; the JAX
     package normalises it so, PARITY.md); the reverse noise is Gaussian."""
+    streams.torch_only(args, "detection_A")
     device = _device_of(em)
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(2)
@@ -346,6 +352,7 @@ def detection_B(args, em, sched, x_0, mask, file_id,
     mean of `total_avg` reconstructions, a heatmap figure
     diffusion-videos/ARGS={n}/Anomalous/{file_id}/{denoise_fn}/
     heatmap-t={lambda}.png, and its Dice; returns the Dice per lambda."""
+    streams.torch_only(args, "detection_B")
     device = _device_of(em)
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(3)
@@ -377,6 +384,7 @@ def detection_A_fixedT(args, em, sched, x_0, mask, end_freq: int = 6,
     """Fixed lambda = 250 at simplex frequency 2^1 .. 2^end_freq (forward and
     reverse noise): per frequency the rows x_0, x_noised, recon, square
     error, thresholded map, mask, stacked into one NHWC array."""
+    streams.torch_only(args, "detection_A_fixedT")
     del args
     device = _device_of(em)
     if generator is None:
@@ -423,6 +431,7 @@ def anomalous_validation(args=None, root_dir: str = ".",
     slice."""
     args, em, sched = _eval_inputs(args, root_dir, token, use_checkpoint,
                                    device)
+    streams.torch_only(args, "anomalous_validation")
     device = _device_of(em)
     noise_sampler = sampler_from_args(args)
     noise_kind = str(args.get("noise_fn") or "simplex")
@@ -507,6 +516,7 @@ def graph_data(args=None, root_dir: str = ".", token: Optional[str] = None,
         device = mesh.device
     args, em, sched = _eval_inputs(args, root_dir, token, use_checkpoint,
                                    device)
+    streams.torch_only(args, "graph_data")
     device = _device_of(em)
     noise_sampler = shard_sampler(sampler_from_args(args), mesh)
     main_rank = _is_main(mesh)
@@ -639,6 +649,7 @@ def roc_data(tokens, labels=None, root_dir: str = ".",
                                            device)
         for k, v in (args_override or {}).items():
             args[k] = v
+        streams.torch_only(args, "roc_data")
         noise_sampler = shard_sampler(sampler_from_args(args), mesh)
         td = min(t_distance, sched.num_timesteps)
         d_set = anomalous_dataset_from_args(root_dir, args)

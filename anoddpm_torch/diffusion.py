@@ -8,7 +8,13 @@ Counterpart of `anoddpm_tpu/diffusion.py:35-354` (detection, DDIM) and
 (B,) int64 tensor.  The chains and the VLB sweep are Python loops with no
 host syncs; their noise comes from a sampler and an explicit
 `torch.Generator`, drawn in the order the steps run: the forward jump (or
-the forward chain's steps) first, then one field per reverse step.
+the forward chain's steps) first, then one field per reverse step.  Each
+takes a `compat.jax_random.JaxKey` in the generator's place too (config key
+`rng: "jax"`): then every function splits it where its counterpart in the
+JAX package splits its key (`streams.of(...).split`: a forward and a
+reverse key, one split per chain step, per VLB step), so that its draws
+are the JAX package's.  A torch.Generator passes through those splits as
+itself, drawing in the same order as before.
 
 Frame capture: a chain given a list as `frames` appends every x it
 produces, on the device; `forward_backward_sequence` stacks them once into
@@ -23,8 +29,10 @@ from typing import Callable, Dict, List, NamedTuple, Optional
 
 import torch
 
+from . import streams
 from .ops.noise import NoiseSampler, gaussian_noise
 from .schedule import Schedule
+from .streams import Stream
 
 ModelFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 
@@ -107,7 +115,7 @@ def p_mean_variance(model_fn: ModelFn, sched: Schedule, x_t: torch.Tensor,
 
 
 def sample_p(model_fn: ModelFn, sched: Schedule, x_t: torch.Tensor,
-             t: torch.Tensor, generator: torch.Generator,
+             t: torch.Tensor, generator: Stream,
              noise_sampler: NoiseSampler = gaussian_noise):
     """One reverse step x_t -> x_{t-1}; returns (sample, pred_x_0).  Noise
     is drawn at every step and zeroed where t == 0."""
@@ -122,38 +130,41 @@ def _full(x: torch.Tensor, t: int) -> torch.Tensor:
 
 
 def denoise_chain(model_fn: ModelFn, sched: Schedule, x: torch.Tensor,
-                  t_distance: int, generator: torch.Generator,
+                  t_distance: int, generator: Stream,
                   noise_sampler: NoiseSampler = gaussian_noise,
                   frames: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
     """Reverse chain t = t_distance-1 .. 0; appends each step's x to
     `frames` when given."""
+    k = generator
     for t in range(t_distance - 1, -1, -1):
-        x, _ = sample_p(model_fn, sched, x, _full(x, t), generator,
-                        noise_sampler)
+        k, sub = streams.of(k).split()
+        x, _ = sample_p(model_fn, sched, x, _full(x, t), sub, noise_sampler)
         if frames is not None:
             frames.append(x)
     return x
 
 
 def diffuse_gradual_chain(sched: Schedule, x: torch.Tensor, t_distance: int,
-                          generator: torch.Generator,
+                          generator: Stream,
                           noise_sampler: NoiseSampler = gaussian_noise,
                           frames: Optional[List[torch.Tensor]] = None
                           ) -> torch.Tensor:
     """Forward chain of single q-steps t = 0 .. t_distance-1, one noise field
     per step ("whole" mode); appends each step's x to `frames` when
     given."""
+    k = generator
     for t in range(t_distance):
+        k, sub = streams.of(k).split()
         t_batch = _full(x, t)
         x = sample_q_gradual(sched, x, t_batch,
-                             noise_sampler(x.shape, t_batch, generator))
+                             noise_sampler(x.shape, t_batch, sub))
         if frames is not None:
             frames.append(x)
     return x
 
 
 def forward_backward(model_fn: ModelFn, sched: Schedule, x: torch.Tensor,
-                     t_distance: Optional[int], generator: torch.Generator,
+                     t_distance: Optional[int], generator: Stream,
                      noise_sampler: NoiseSampler = gaussian_noise,
                      denoise_sampler: Optional[NoiseSampler] = None,
                      gradual_forward: bool = False,
@@ -170,22 +181,23 @@ def forward_backward(model_fn: ModelFn, sched: Schedule, x: torch.Tensor,
         t_distance = sched.num_timesteps
     if denoise_sampler is None:
         denoise_sampler = noise_sampler
+    key_fwd, key_rev = streams.of(generator).split()
     if gradual_forward:
-        x_t = diffuse_gradual_chain(sched, x, t_distance, generator,
+        x_t = diffuse_gradual_chain(sched, x, t_distance, key_fwd,
                                     noise_sampler, frames)
     else:
         t_batch = _full(x, t_distance - 1)
         x_t = sample_q(sched, x, t_batch,
-                       noise_sampler(x.shape, t_batch, generator))
+                       noise_sampler(x.shape, t_batch, key_fwd))
         if frames is not None:
             frames.append(x_t)
-    return denoise_chain(model_fn, sched, x_t, t_distance, generator,
+    return denoise_chain(model_fn, sched, x_t, t_distance, key_rev,
                          denoise_sampler, frames)
 
 
 def forward_backward_sequence(model_fn: ModelFn, sched: Schedule,
                               x: torch.Tensor, t_distance: Optional[int],
-                              generator: torch.Generator,
+                              generator: Stream,
                               noise_sampler: NoiseSampler = gaussian_noise,
                               denoise_sampler: Optional[NoiseSampler] = None,
                               see_whole_sequence: str = "half"):
@@ -208,7 +220,7 @@ def forward_backward_sequence(model_fn: ModelFn, sched: Schedule,
 
 def forward_backward_batched_lambda(model_fn: ModelFn, sched: Schedule,
                                     x: torch.Tensor, lam: torch.Tensor,
-                                    max_t: int, generator: torch.Generator,
+                                    max_t: int, generator: Stream,
                                     noise_sampler: NoiseSampler = gaussian_noise,
                                     denoise_sampler: Optional[NoiseSampler] = None
                                     ) -> torch.Tensor:
@@ -225,12 +237,14 @@ def forward_backward_batched_lambda(model_fn: ModelFn, sched: Schedule,
         denoise_sampler = noise_sampler
     lam = torch.as_tensor(lam, dtype=torch.int64, device=x.device)
     bcast = (x.shape[0],) + (1,) * (x.dim() - 1)
+    key_fwd, k = streams.of(generator).split()
     t_corrupt = torch.clamp(lam - 1, min=0)
     x_corrupt = sample_q(sched, x, t_corrupt,
-                         noise_sampler(x.shape, t_corrupt, generator))
+                         noise_sampler(x.shape, t_corrupt, key_fwd))
     xc = torch.where((lam > 0).view(bcast), x_corrupt, x)
     for t in range(max_t - 1, -1, -1):
-        x_next, _ = sample_p(model_fn, sched, xc, _full(x, t), generator,
+        k, sub = streams.of(k).split()
+        x_next, _ = sample_p(model_fn, sched, xc, _full(x, t), sub,
                              denoise_sampler)
         xc = torch.where((t < lam).view(bcast), x_next, xc)
     return xc
@@ -287,17 +301,19 @@ def ddim_timesteps(t_distance: int, num_steps: int) -> torch.Tensor:
 
 
 def ddim_chain(model_fn: ModelFn, sched: Schedule, x: torch.Tensor,
-               t_distance: int, num_steps: int, generator: torch.Generator,
+               t_distance: int, num_steps: int, generator: Stream,
                eta: float = 0.0, noise_sampler: NoiseSampler = gaussian_noise,
                frames: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
     """Strided reverse chain x_{t_distance-1} -> x_0 in `num_steps` model
     evaluations; a noise field is drawn at each step only when eta > 0.
     Appends each step's x to `frames` when given."""
     ts = ddim_timesteps(t_distance, num_steps).tolist()
+    k = generator
     for t, t_prev in zip(ts, ts[1:] + [-1]):
+        k, sub = streams.of(k).split()
         t_batch = _full(x, t)
         eps = model_fn(x, t_batch)
-        noise = noise_sampler(x.shape, t_batch, generator) if eta > 0 else None
+        noise = noise_sampler(x.shape, t_batch, sub) if eta > 0 else None
         x, _ = ddim_step(sched, x, t_batch, _full(x, t_prev), eps, eta, noise)
         if frames is not None:
             frames.append(x)
@@ -306,7 +322,7 @@ def ddim_chain(model_fn: ModelFn, sched: Schedule, x: torch.Tensor,
 
 def forward_backward_ddim(model_fn: ModelFn, sched: Schedule, x: torch.Tensor,
                           t_distance: int, num_steps: int,
-                          generator: torch.Generator,
+                          generator: Stream,
                           noise_sampler: NoiseSampler = gaussian_noise,
                           eta: float = 0.0,
                           frames: Optional[List[torch.Tensor]] = None
@@ -317,11 +333,12 @@ def forward_backward_ddim(model_fn: ModelFn, sched: Schedule, x: torch.Tensor,
     `see_whole_sequence` frames)."""
     if t_distance == 0:
         return x
+    key_fwd, key_rev = streams.of(generator).split()
     t_batch = _full(x, t_distance - 1)
-    x_t = sample_q(sched, x, t_batch, noise_sampler(x.shape, t_batch, generator))
+    x_t = sample_q(sched, x, t_batch, noise_sampler(x.shape, t_batch, key_fwd))
     if frames is not None:
         frames.append(x_t)
-    return ddim_chain(model_fn, sched, x_t, t_distance, num_steps, generator,
+    return ddim_chain(model_fn, sched, x_t, t_distance, num_steps, key_rev,
                       eta, noise_sampler, frames)
 
 
@@ -385,7 +402,7 @@ def prior_vlb(sched: Schedule, x_0: torch.Tensor) -> torch.Tensor:
 
 
 def calc_loss(model_fn: ModelFn, sched: Schedule, x_0: torch.Tensor,
-              t: torch.Tensor, generator: torch.Generator,
+              t: torch.Tensor, generator: Stream,
               noise_sampler: NoiseSampler = gaussian_noise,
               loss_type: str = "l2"):
     """The training objective: (per-sample loss (B,), {"x_t", "estimate",
@@ -404,13 +421,13 @@ def calc_loss(model_fn: ModelFn, sched: Schedule, x_0: torch.Tensor,
     return loss, {"x_t": x_t, "estimate": estimate, "noise": noise}
 
 
-def sample_timesteps(generator: torch.Generator, batch: int,
+def sample_timesteps(generator: Stream, batch: int,
                      max_t: int) -> torch.Tensor:
     """Uniform t ~ U[0, max_t) on the generator's device.  With train_start
     the caller passes max_t = min(sample_distance, T), so that the model
-    never trains on t >= lambda_max (deliberate, as in the reference)."""
-    return torch.randint(0, max_t, (batch,), generator=generator,
-                         device=generator.device)
+    never trains on t >= lambda_max (deliberate, as in the reference).  A
+    JaxKey's `randint` is drawn on the host and copied."""
+    return streams.of(generator).randint((batch,), max_t)
 
 
 def make_loss_weights(loss_weight: str, num_timesteps: int):
@@ -422,7 +439,7 @@ def make_loss_weights(loss_weight: str, num_timesteps: int):
     return None
 
 
-def sample_t_with_weights(generator: torch.Generator, batch: int,
+def sample_t_with_weights(generator: Stream, batch: int,
                           weight_table: torch.Tensor):
     """t drawn with probability p[t] = w[t] / sum(w), and its importance
     weight 1 / (N p[t]).
@@ -431,6 +448,7 @@ def sample_t_with_weights(generator: torch.Generator, batch: int,
     1 / (N p[t]), where the reference computes (1 / N) p[t], which scales
     the loss by about p^2 N^2 against the unbiased estimator.  No shipped
     config sets loss_weight, so shipped behaviour is the same."""
+    generator = streams.of(generator).torch_generator("loss_weight")
     weight_table = weight_table.to(generator.device)
     p = weight_table / weight_table.sum()
     t = torch.multinomial(p, batch, replacement=True, generator=generator)
@@ -438,7 +456,7 @@ def sample_t_with_weights(generator: torch.Generator, batch: int,
 
 
 def calc_total_vlb(model_fn: ModelFn, sched: Schedule, x_0: torch.Tensor,
-                   generator: torch.Generator,
+                   generator: Stream,
                    noise_sampler: NoiseSampler = gaussian_noise
                    ) -> Dict[str, torch.Tensor]:
     """The full T-step VLB sweep, a Python loop over t = T-1 .. 0 with no
@@ -448,10 +466,12 @@ def calc_total_vlb(model_fn: ModelFn, sched: Schedule, x_0: torch.Tensor,
     Returns total_vlb and prior_vlb, (B,), and vb, x_0_mse and mse, (B, T),
     ordered by descending t (column i is t = T-1-i)."""
     vb, x0_mse, mse = [], [], []
+    k = generator
     for t in range(sched.num_timesteps - 1, -1, -1):
+        k, sub = streams.of(k).split()
         t_batch = torch.full((x_0.shape[0],), t, dtype=torch.int64,
                              device=x_0.device)
-        noise = noise_sampler(x_0.shape, t_batch, generator).to(x_0.dtype)
+        noise = noise_sampler(x_0.shape, t_batch, sub).to(x_0.dtype)
         x_t = sample_q(sched, x_0, t_batch, noise)
         term, pred_x_0 = calc_vlb_xt(model_fn, sched, x_0, x_t, t_batch)
         vb.append(term)

@@ -24,6 +24,7 @@ import torch
 
 from . import diffusion as dm
 from . import metrics as M
+from . import streams
 from . import visualize as vz
 from .data.pipeline import to_nchw, to_nhwc
 from .device import DeviceLike
@@ -43,7 +44,7 @@ def testing(test_iter, model, sched: Schedule, args,
     images."""
     device = next(model.parameters()).device
     if generator is None:
-        generator = torch.Generator(device=device).manual_seed(0)
+        generator = streams.make(args, 0, device)
     arg_num = args["arg_num"]
     t_half = sched.num_timesteps // 2
     was_training = model.training
@@ -66,8 +67,9 @@ def testing(test_iter, model, sched: Schedule, args,
     with torch.inference_mode():
         for lam in range(100, sample_distance, 100) if save_videos else ():
             x = next_batch()
+            generator, sub = streams.of(generator).split()
             _, frames = dm.forward_backward_sequence(
-                model, sched, x, lam, generator, noise_sampler=noise_sampler,
+                model, sched, x, lam, sub, noise_sampler=noise_sampler,
                 see_whole_sequence="half")
             vz.save_video(os.path.join(video_dir, f"t={lam}.mp4"),
                           list(to_nhwc(frames)),
@@ -75,7 +77,8 @@ def testing(test_iter, model, sched: Schedule, args,
         seen = 0
         while seen < n_images:
             x = next_batch()
-            out = dm.calc_total_vlb(model, sched, x, generator)
+            generator, sub = streams.of(generator).split()
+            out = dm.calc_total_vlb(model, sched, x, sub)
             total_vlbs.append(float(out["total_vlb"].mean()))
             prior_vlbs.append(float(out["prior_vlb"].mean()))
             vb200.append(sel(out["vb"]))
@@ -85,7 +88,8 @@ def testing(test_iter, model, sched: Schedule, args,
         seen = 0
         while seen < n_images:
             x = next_batch()
-            recon = dm.forward_backward(model, sched, x, t_half, generator,
+            generator, sub = streams.of(generator).split()
+            recon = dm.forward_backward(model, sched, x, t_half, sub,
                                         noise_sampler=noise_sampler)
             psnrs.append(M.psnr(recon.cpu().numpy(), x.cpu().numpy()))
             seen += x.shape[0]

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from . import diffusion as dmod
+from . import streams
 from . import visualize as vz
 from .data.datasets import anomalous_dataset_from_args
 from .data.pipeline import to_nchw, to_nhwc
@@ -115,6 +116,7 @@ def ano_outputs(args, em, sched, root_dir: str = ".", n_attempts: int = 3,
     seeded attempt * 97 + row: final-outputs/ARGS={n}/attempt={k}-{threshold}
     -predictions.png (the 6-panel rows) and ...-sequence.png (13-column
     filmstrips with prediction and mask)."""
+    streams.torch_only(args, "figures.ano_outputs")
     td = max(1, min(t_distance, sched.num_timesteps))
     out_dir = os.path.join(_out_dir(root_dir), f"ARGS={args['arg_num']}")
     os.makedirs(out_dir, exist_ok=True)
@@ -150,6 +152,7 @@ def ce_outputs(args, ce_model=None, root_dir: str = ".", n_attempts: int = 3,
     final-outputs/ARGS={n}/ce-attempt={k}-predictions.png.  Without a
     trained `ce_model` one is trained for `ce_train_steps` on the config's
     healthy set."""
+    streams.torch_only(args, "figures.ce_outputs")
     from .baselines import train_context_encoder
     from .models.context_encoder import sliding_window_inpaint
     if ce_model is None:
@@ -224,6 +227,7 @@ def denoise_sequence(args, em, sched, root_dir: str = ".",
                      t_distance: Optional[int] = None, n_cols: int = 13):
     """A 13-frame forward/backward filmstrip of the first anomalous slice
     at lambda = sample_distance / 2: final-outputs/ARGS={n}-sequence.png."""
+    streams.torch_only(args, "figures.denoise_sequence")
     x, _ = _first_slice(args, root_dir)
     if t_distance is None:
         t_distance = int(args["sample_distance"]) // 2
@@ -241,6 +245,7 @@ def masked_comparison(args, em, sched, root_dir: str = ".",
     """`make_prediction` rows of the first slice of `n_volumes` volumes
     ("half" sequences, generator seeded by the volume's index):
     final-outputs/ARGS={n}-masked-comparison.png."""
+    streams.torch_only(args, "figures.masked_comparison")
     td = min(t_distance, sched.num_timesteps)
     fb = _sequence_fb(em, sched, td, sampler_from_args(args), whole="half")
     rows = []
@@ -259,6 +264,7 @@ def diffusion_videos(args, em, sched, root_dir: str = ".", n_volumes: int = 2):
     """A "whole" partial-diffusion video of the first slice of `n_volumes`
     volumes at lambda = sample_distance / 2:
     final-outputs/ARGS={n}-video-{i}.mp4."""
+    streams.torch_only(args, "figures.diffusion_videos")
     lam = int(args["sample_distance"]) // 2
     fb = _sequence_fb(em, sched, lam, sampler_from_args(args))
     for i in range(n_volumes):
@@ -274,6 +280,7 @@ def gauss_simplex_comparison(args, em, sched, root_dir: str = ".",
     """`make_prediction` rows of the first slice under Gaussian, then
     simplex noise (generator seeded 7):
     final-outputs/ARGS={n}-gauss-vs-simplex.png."""
+    streams.torch_only(args, "figures.gauss_simplex_comparison")
     x, mask = _first_slice(args, root_dir)
     td = min(t_distance, sched.num_timesteps)
     rows = []
@@ -304,6 +311,7 @@ def gauss_varying_t(args, em, sched, root_dir: str = ".",
                     lambdas=(250, 500, 750)):
     """Gaussian reconstructions of the first slice at each lambda (clamped
     to T; generator seeded lambda): final-outputs/ARGS={n}-gauss-varyingT.png."""
+    streams.torch_only(args, "figures.gauss_varying_t")
     x, mask = _first_slice(args, root_dir)
     device = _device_of(em)
     sampler = make_noise_sampler("gauss")

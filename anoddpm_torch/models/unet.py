@@ -104,6 +104,7 @@ class Conv(nn.Module):
         self.bias = nn.Parameter(torch.zeros(cout))
         self.dtype = dtype
         self.stride = stride
+        self.zero = zero
         if zero:
             nn.init.zeros_(self.weight)
         else:
@@ -141,6 +142,7 @@ class Dense(nn.Module):
         self.weight = nn.Parameter(torch.empty(cout, cin))
         self.bias = nn.Parameter(torch.zeros(cout))
         self.dtype = dtype
+        self.zero = zero
         if zero:
             nn.init.zeros_(self.weight)
         else:

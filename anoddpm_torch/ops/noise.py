@@ -5,6 +5,15 @@ Counterpart of `anoddpm_tpu/ops/noise.py`.  A sampler is a function
 and the result lies on the generator's device, with every random draw (the
 Gaussian values, the lattice-hash seeds) made there from that generator.
 
+The generator may instead be a `compat.jax_random.JaxKey` (config key
+`rng: "jax"`): every draw goes through `streams.of(generator)`, so that a
+sampler draws what the JAX package's sampler draws from that key,
+`bits(key, (B * C,))` as K1's seeds for simplex and `normal(key, NHWC
+shape)` for Gaussian noise.  The kinds whose JAX draws are not ported
+(simplex_randParam, random, the table path, simplex_2d) take the
+generator through `torch_generator`, which raises under a JaxKey; they
+never fall back to another stream.
+
 By default every (sample, channel) pair gets its own simplex field;
 `share_batch=True` repeats one field per channel over the batch, as the
 reference does.  Every kind is drawn on the device without a host sync:
@@ -19,10 +28,11 @@ from typing import Callable, Tuple
 
 import torch
 
+from .. import streams
+from ..streams import Stream
 from . import simplex as sx
 
-NoiseSampler = Callable[[Tuple[int, ...], torch.Tensor, torch.Generator],
-                        torch.Tensor]
+NoiseSampler = Callable[[Tuple[int, ...], torch.Tensor, Stream], torch.Tensor]
 
 # The reference's 23 (octaves, persistence, frequency) triples of
 # "simplex_randParam" (the JAX package's noise.py:30-36).
@@ -45,10 +55,17 @@ def _rand_param_table(device: torch.device) -> torch.Tensor:
     return table.to(device)
 
 
-def _seeds(n: int, generator: torch.Generator) -> torch.Tensor:
-    """n uint32 lattice-hash seeds, as int64, drawn on the generator's device."""
-    return torch.randint(0, 1 << 32, (n,), generator=generator,
-                         device=generator.device, dtype=torch.int64)
+def _torch_only(kind: str, generator: Stream) -> torch.Generator:
+    """The torch.Generator of a noise kind without a JAX stream in the
+    port."""
+    return streams.of(generator).torch_generator(f"noise kind {kind!r}")
+
+
+def _seeds(n: int, generator: Stream) -> torch.Tensor:
+    """n uint32 lattice-hash seeds, as int64, on the generator's device:
+    drawn there from a torch.Generator, or `bits(key, (n,))` of a JaxKey
+    made on the host and copied."""
+    return streams.of(generator).seeds(n)
 
 
 def _perms(n: int, generator: torch.Generator):
@@ -69,10 +86,9 @@ def _coin(generator: torch.Generator) -> torch.Tensor:
 
 
 def gaussian_noise(shape: Tuple[int, ...], t: torch.Tensor,
-                   generator: torch.Generator) -> torch.Tensor:
+                   generator: Stream) -> torch.Tensor:
     del t
-    return torch.randn(tuple(shape), generator=generator,
-                       device=generator.device, dtype=torch.float32)
+    return streams.of(generator).normal(shape)
 
 
 gaussian_noise.fingerprint = ("gauss",)
@@ -102,7 +118,7 @@ def simplex_noise(shape: Tuple[int, ...], t: torch.Tensor,
         # one field per channel at t[0], repeated over the batch
         t_fields = t_fields[:c].contiguous()
     if table:
-        perms, gids = _perms(n, generator)
+        perms, gids = _perms(n, _torch_only("simplex (table path)", generator))
         fields = sx.batched_fractal3_fixed_t_table(
             perms, gids, t_fields, (h, w), octaves, persistence, frequency)
     else:
@@ -121,6 +137,7 @@ def simplex2d_noise(shape: Tuple[int, ...], t: torch.Tensor,
     """Timestep-independent 2-D octave fields (hash path, plain PyTorch),
     one per (sample, channel); `t` is ignored."""
     del t
+    generator = _torch_only("simplex_2d", generator)
     b, c, h, w = shape
     fields = sx.batched_fractal2(_seeds(b * c, generator), (h, w), octaves,
                                  persistence, frequency)
@@ -143,6 +160,7 @@ def simplex_rand_param_noise(shape: Tuple[int, ...], t: torch.Tensor,
     call, drawn on the device from RAND_PARAM_TABLE and shared by every
     (sample, channel) field, as the JAX package does (PARITY.md): one launch
     of K1's parameters-from-device entry, no host sync."""
+    generator = _torch_only("simplex_randParam", generator)
     b, c, h, w = shape
     params = torch.index_select(_rand_param_table(generator.device), 0,
                                 _param_index(generator).reshape(1))[0]
@@ -179,6 +197,7 @@ def make_noise_sampler(kind: str, octaves: int = 6, persistence: float = 0.8,
     if kind == "random":
         def random_noise(shape, t, generator):
             # both drawn, the coin picks on the device: no host sync
+            generator = _torch_only("random", generator)
             coin = _coin(generator)
             gauss = gaussian_noise(shape, t, generator)
             simplex = simplex_noise(shape, t, generator, octaves, persistence,

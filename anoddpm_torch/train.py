@@ -22,21 +22,30 @@ batch) and runs the test-set suite, while the others wait at a barrier.
 `train_substeps` S > 1 takes S steps per dispatch
 (`training.make_multi_step`): iters_per_epoch // S dispatches an epoch,
 and images/s counts B * S.
+
+`rng: "jax"` trains on the JAX package's draws: the UNet starts from the
+parameters its `model.init` gives at `split(key(seed))[1]`
+(`compat.flax_init`), every dispatch takes the loop's key (the other half
+of that split), and the loop splits its key at each snapshot, VLB sweep
+and video, in the JAX trainer's order (`anoddpm_tpu/train.py:54-58,
+126-187`).
 """
 
 from __future__ import annotations
 
 import sys
 import time
-from typing import Optional
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
 
 from . import diffusion as dmod
 from . import evaluation as ev
+from . import streams
 from . import visualize as vz
 from .checkpoint import load_checkpoint, purge_checkpoints, save_checkpoint
+from .compat.flax_init import jax_init_state_dict
 from .config import load_args, resolve_in_channels
 from .data.datasets import dataset_from_args
 from .data.pipeline import batch_iterator, prefetch_to_device, to_nhwc
@@ -56,24 +65,27 @@ _USAGE = ("usage: python -m anoddpm_torch.train [RESUME_RECENT|RESUME_FINAL] "
 
 
 def save_snapshot(path: str, state: TrainState, sched, noise_sampler, x,
-                  epoch: int, max_t: int, generator: torch.Generator) -> None:
+                  epoch: int, max_t: int, generator) -> None:
     """The every-50-epochs training image: at epochs divisible by 100 the
     real / sample / pred_x0 grid of one EMA reverse step from a random t
     (the q-jump with the training noise), else the real / x_t / eps
-    estimate / square error grid of the training model at t < max_t."""
+    estimate / square error grid of the training model at t < max_t.  A
+    JaxKey is split into the t, noise (and step) keys as in JAX."""
     model = state.model
     was_training = model.training
     model.eval()
     with torch.inference_mode():
         if epoch % 100 == 0:
-            t = dmod.sample_timesteps(generator, x.shape[0], sched.num_timesteps)
-            x_t = dmod.sample_q(sched, x, t, noise_sampler(x.shape, t, generator))
-            sample, pred_x0 = dmod.sample_p(state.ema, sched, x_t, t, generator)
+            tk, nk, sk = streams.of(generator).split(3)
+            t = dmod.sample_timesteps(tk, x.shape[0], sched.num_timesteps)
+            x_t = dmod.sample_q(sched, x, t, noise_sampler(x.shape, t, nk))
+            sample, pred_x0 = dmod.sample_p(state.ema, sched, x_t, t, sk)
             vz.sample_snapshot(path, to_nhwc(x), to_nhwc(sample),
                                to_nhwc(pred_x0), epoch)
         else:
-            t = dmod.sample_timesteps(generator, x.shape[0], max_t)
-            x_t = dmod.sample_q(sched, x, t, noise_sampler(x.shape, t, generator))
+            tk, nk = streams.of(generator).split()
+            t = dmod.sample_timesteps(tk, x.shape[0], max_t)
+            x_t = dmod.sample_q(sched, x, t, noise_sampler(x.shape, t, nk))
             vz.training_snapshot(path, to_nhwc(x), to_nhwc(x_t),
                                  to_nhwc(model(x_t, t)), epoch)
     model.train(was_training)
@@ -81,12 +93,15 @@ def save_snapshot(path: str, state: TrainState, sched, noise_sampler, x,
 
 def new_train_state(args, device: torch.device) -> TrainState:
     """A fresh run's state on `device`: the UNet initialised on the CPU from
-    args' seed (the same weights on every device), its EMA copy, and the
-    clipped AdamW of args."""
+    args' seed (the same weights on every device), or under `rng: "jax"`
+    loaded with the JAX package's init of that seed (drawn on the CPU too),
+    its EMA copy, and the clipped AdamW of args."""
     seed = int(args.get("seed", 0) or 0)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
         model = unet_from_args(args, resolve_in_channels(args))
+    if streams.rng_of(args) == "jax":
+        model.load_state_dict(jax_init_state_dict(args, seed))
     model = model.to(device)
     optimizer = make_optimizer(model.parameters(), float(args["lr"]),
                                float(args.get("weight_decay", 0) or 0),
@@ -110,6 +125,36 @@ def restore_train_state(state: TrainState, root_dir: str, args,
     return int(meta["n_epoch"])
 
 
+def dispatch_of(args, sched, noise_sampler,
+                mesh: Optional[Mesh] = None) -> Tuple[Callable, int]:
+    """The call a run makes per batch, `(state, x, generator) -> metrics`:
+    args' train step, or its multi-step of `train_substeps` steps; and its
+    max_t, which with train_start is min(sample_distance, T), so that the
+    model never trains on t >= lambda_max."""
+    if args.get("train_start"):
+        max_t = min(int(args["sample_distance"]), sched.num_timesteps)
+    else:
+        max_t = sched.num_timesteps
+    train_step = make_train_step(
+        sched, noise_sampler, loss_type=str(args.get("loss-type") or "l2"),
+        max_t=max_t, ema_decay=float(args.get("ema_decay", 0.9999) or 0.9999),
+        loss_weight=str(args.get("loss_weight") or "none"),
+        dropout=float(args.get("dropout", 0) or 0) > 0, mesh=mesh)
+    substeps = int(args.get("train_substeps") or 1)
+    if substeps > 1:
+        train_step = make_multi_step(train_step, substeps)
+    return train_step, max_t
+
+
+def loop_stream(args, device) -> streams.Stream:
+    """The stream every dispatch of a run draws from: the generator seeded
+    args' seed, or under `rng: "jax"` the JAX trainer's loop key
+    split(key(seed))[0] (the init took [1]; a torch.Generator passes
+    through the split as itself)."""
+    return streams.of(streams.make(args, int(args.get("seed", 0) or 0),
+                                   device)).split()[0]
+
+
 def train(args, root_dir: str = ".", resume: Optional[str] = None,
           max_epochs: Optional[int] = None, device: DeviceLike = None,
           mesh: Optional[Mesh] = None) -> TrainState:
@@ -125,19 +170,8 @@ def train(args, root_dir: str = ".", resume: Optional[str] = None,
         start_epoch = restore_train_state(state, root_dir, args, resume)
         print(f"resumed from epoch {start_epoch}")
 
-    # never train on t >= lambda_max with train_start
-    if args.get("train_start"):
-        max_t = min(int(args["sample_distance"]), sched.num_timesteps)
-    else:
-        max_t = sched.num_timesteps
-    train_step = make_train_step(
-        sched, noise_sampler, loss_type=str(args.get("loss-type") or "l2"),
-        max_t=max_t, ema_decay=float(args.get("ema_decay", 0.9999) or 0.9999),
-        loss_weight=str(args.get("loss_weight") or "none"),
-        dropout=float(args.get("dropout", 0) or 0) > 0, mesh=mesh)
+    train_step, max_t = dispatch_of(args, sched, noise_sampler, mesh)
     substeps = int(args.get("train_substeps") or 1)
-    if substeps > 1:
-        train_step = make_multi_step(train_step, substeps)
 
     batch_size = int(args["Batch_Size"])
     if mesh is not None and batch_size % mesh.world_size:
@@ -155,13 +189,11 @@ def train(args, root_dir: str = ".", resume: Optional[str] = None,
                           (200 if is_cifar else max(100 // batch_size, 1)))
     epochs = int(args["EPOCHS"]) if max_epochs is None else max_epochs
     checkpoint_every = int(args.get("checkpoint_every", 1000) or 1000)
-    generator = torch.Generator(device=device).manual_seed(
-        int(args.get("seed", 0) or 0))
+    generator = loop_stream(args, device)
 
     def after_main_rank_draws():
         """Rank 0 alone drew from the shared generator: hand its state on."""
-        if mesh is not None:
-            mesh.broadcast_generator(generator)
+        streams.of(generator).hand_on(mesh)
 
     start_time = time.time()
     losses, vlb_log = [], []
@@ -181,12 +213,12 @@ def train(args, root_dir: str = ".", resume: Optional[str] = None,
                 timer.tick()
                 epoch_losses.append(metrics["loss"])
                 if epoch % 50 == 0 and i == 0 and args.get("save_imgs"):
+                    generator, sub = streams.of(generator).split()
                     if main_rank:
                         save_snapshot(
                             f"{root_dir}/diffusion-training-images/"
                             f"ARGS={args['arg_num']}/EPOCH={epoch}.png", state,
-                            sched, noise_sampler, x_vis, epoch, max_t,
-                            generator)
+                            sched, noise_sampler, x_vis, epoch, max_t, sub)
                     after_main_rank_draws()
             prof.end_epoch(epoch - start_epoch)
             losses.append(float(torch.stack(epoch_losses).mean()))
@@ -197,12 +229,13 @@ def train(args, root_dir: str = ".", resume: Optional[str] = None,
                                        if timer.mean == timer.mean else 0.0))
 
             if epoch % 200 == 0:
+                generator, sub = streams.of(generator).split()
                 if main_rank:
                     sweep_start = time.time()
                     state.model.eval()
                     with torch.inference_mode():
                         vlb_terms = dmod.calc_total_vlb(state.model, sched,
-                                                        x_vis, generator)
+                                                        x_vis, sub)
                     vlb_log.append(float(vlb_terms["total_vlb"].mean()))
                     sweep_s = time.time() - sweep_start
                     elapsed = time.time() - start_time
@@ -229,12 +262,13 @@ def train(args, root_dir: str = ".", resume: Optional[str] = None,
 
             if (epoch % 500 == 0 and args.get("save_vids")
                     and epoch > start_epoch):
+                generator, sub = streams.of(generator).split()
                 if main_rank:
                     lam = (int(args["sample_distance"])
                            // (2 if epoch % 1000 == 0 else 4))
                     with torch.inference_mode():
                         _, frames = dmod.forward_backward_sequence(
-                            state.ema, sched, x_vis, lam, generator,
+                            state.ema, sched, x_vis, lam, sub,
                             noise_sampler=noise_sampler,
                             see_whole_sequence="half")
                     vz.save_video(f"{root_dir}/diffusion-videos/"

@@ -11,6 +11,15 @@ which averages the gradients over the ranks before the clip (JAX clips
 the global norm of the all-reduced gradient too).  `remat` recomputes the
 UNet's forward in the backward (`torch.utils.checkpoint`), and
 `make_multi_step` takes several steps per call.
+
+Under `rng: "jax"` the generator is a `compat.jax_random.JaxKey` and a
+step draws as the JAX package's does: `fold_in(key, step)`, split in
+three (t, noise, dropout), t = `randint` and the simplex seeds `bits` of
+those keys, made on the host and copied to the card from pinned memory
+(no sync); a multi-step splits its key once per substep.  So, as in JAX,
+1 and 8 substeps per dispatch draw differently under a JaxKey, where a
+torch.Generator passes through the same splits and fold-in as itself
+(`streams`) and draws the same stream in the same order.
 """
 
 from __future__ import annotations
@@ -24,10 +33,12 @@ import torch.nn as nn
 from torch.utils import checkpoint as ckpt
 
 from . import diffusion as dm
+from . import streams
 from .models.ema import ema_update, init_ema
 from .ops.noise import NoiseSampler
 from .parallel.mesh import Mesh, data_parallel, shard_sampler
 from .schedule import Schedule
+from .streams import Stream
 
 REMAT_POLICIES = (None, "dots", "nothing")
 # jax.checkpoint_policies.dots_saveable keeps the outputs of dot_general
@@ -199,29 +210,35 @@ def make_train_step(sched: Schedule, noise_sampler: NoiseSampler,
         return net
 
     def train_step(state: TrainState, batch: torch.Tensor,
-                   generator: torch.Generator,
+                   generator: Stream,
                    t: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         rows = slice(None)
         b = batch.shape[0]
         if mesh is not None:
             b *= mesh.world_size
             rows = mesh.rows(b)
+        if dropout:
+            streams.of(generator).torch_generator("dropout")
+        # the JAX step's t, noise and dropout keys; a torch.Generator is
+        # all three
+        t_key, noise_key, _ = streams.of(
+            streams.of(generator).fold_in(state.step)).split(3)
         weights = None
         if table is not None:
             if t is None:
                 t, weights = dm.sample_t_with_weights(
-                    generator, b, table_on(generator.device))
+                    t_key, b, table_on(generator.device))
             else:
                 p = table.to(t.device) / table.sum()
                 weights = 1.0 / (table.shape[0] * p[t])
             weights = weights[rows]
         elif t is None:
-            t = dm.sample_timesteps(generator, b, max_t)
+            t = dm.sample_timesteps(t_key, b, max_t)
         t = t[rows]
         if state.model.training != dropout:
             state.model.train(dropout)
         per_sample, _ = dm.calc_loss(forward_of(state.model), sched, batch, t,
-                                     generator, sampler, loss_type)
+                                     noise_key, sampler, loss_type)
         loss = (per_sample.mean() if weights is None
                 else (per_sample * weights).mean())
         state.optimizer.zero_grad()
@@ -243,14 +260,16 @@ def make_multi_step(train_step: Callable, substeps: int) -> Callable:
     host sync (`anoddpm_tpu.training.make_multi_step`)."""
 
     def multi_step(state: TrainState, batches: torch.Tensor,
-                   generator: torch.Generator,
+                   generator: Stream,
                    t: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         if batches.shape[0] != substeps:
             raise ValueError(f"a multi-step of {substeps} got "
                              f"{batches.shape[0]} batches")
         losses, norms = [], []
+        k = generator
         for s in range(substeps):
-            m = train_step(state, batches[s], generator,
+            k, sub = streams.of(k).split()
+            m = train_step(state, batches[s], sub,
                            None if t is None else t[s])
             losses.append(m["loss"])
             norms.append(m["grad_norm"])

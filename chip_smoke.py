@@ -119,7 +119,17 @@ PyTorch built for CUDA.  Phases, each of which fails the run when it fails:
    train step at both configs beside its plain composition's and its
    bound, ms per forward and per train step of the three norm paths at
    s2d64, and `campaigns.substep_probe` cut to 1 epoch (and epoch 0) of 8
-   iterations at 4 and 8 substeps, each with exact launches.
+   iterations at 4 and 8 substeps, each with exact launches;
+18. the JAX package's random streams (`rng: "jax"`) at args256syn64s2d's
+   full width in the flax order: threefry's words (`bits`, `randint`) made
+   on the card bit-equal to the host's, and its normals within the
+   erfinv bound, for the first 16 steps' t and seeds of seed 0 and for
+   one detection group's keys; epoch 0 of seed 0 (the JAX init, 2
+   dispatches of 8 steps on the band recipe's batches) under sync-debug
+   "error" with exactly 1 K1, 71 flax-order K2 and 142 flax-order K2b a
+   step, its loss printed beside the JAX package's TPU log (.15949, not
+   held); and ms per train step with the JAX key and with a torch
+   Generator, in turns.
 
 From phase 13 on, every (shape, dtype) that K2 and K2b launch at is
 recorded, and after each phase K2 and K2b are held against their plain
@@ -136,6 +146,7 @@ CUDA is unavailable.
 """
 
 import contextlib
+import copy
 import functools
 import io
 import json
@@ -3073,6 +3084,232 @@ def measuring_path(card):
     return tuple(total), flax_rows
 
 
+JAX_STREAMS_CONFIG = "256syn64s2d"
+JAX_STREAMS_LOG_LOSS = 0.15949   # seed 0's epoch-0 loss, results/seed_replication.log:90
+JAX_STREAMS_NORMAL_ULPS = 256    # card's erfinv vs the host's, at the normals' values
+JAX_STREAMS_TURNS = 3            # timed rounds per stream, in turns
+JAX_STREAMS_STEPS = 5            # train steps per timed round
+
+
+def jax_train_draws(seed, iters, substeps, batch, max_t):
+    """The keys and draws of the JAX trainer's first `iters` steps, built
+    from its code (`anoddpm_tpu/train.py:54-58,126`, `training.py:84-85,
+    132-140`), as the reference the port's trainer is held to: the loop
+    key split(key(seed))[0], passed to every dispatch; one split per
+    substep; fold_in(step) split in three; t = randint(t_key) and the
+    simplex seeds bits(noise_key), here on the host.  Returns [(t_key,
+    noise_key, t, seeds)] per step."""
+    from anoddpm_torch.compat import jax_random as jr
+    loop_key, out = jr.key(seed).split()[0], []
+    for step in range(iters):
+        k = loop_key
+        for _ in range(step % substeps + 1):
+            k, sub = k.split()
+        t_key, noise_key, _ = sub.fold_in(step).split(3)
+        out.append((t_key, noise_key, jr.randint(t_key, (batch,), 0, max_t),
+                    jr.bits(noise_key, (batch,))))
+    return out
+
+
+def jax_detect_seeds(seed, steps, n):
+    """The simplex seeds of every draw of the JAX detector's first volume
+    group under DDIM at eta > 0, from its code (`anoddpm_tpu/detect.py:199,
+    210`, `diffusion.py:321,345`): key(seed + 1) split once for the group,
+    the group's key split into a q-jump and a reverse key, the reverse key
+    split once per step; each draw bits(key, (n,))."""
+    from anoddpm_torch.compat import jax_random as jr
+    _, group = jr.key(seed + 1).split()
+    fwd, k = group.split()
+    keys = [fwd]
+    for _ in range(steps):
+        k, sub = k.split()
+        keys.append(sub)
+    return [jr.bits(key, (n,)) for key in keys]
+
+
+class DrawRecorder:
+    """Records, while on, the t (`diffusion.sample_timesteps`) and the
+    simplex seeds (`ops.noise._seeds`) that the port's own code draws, as
+    the tensors it made (read after the run: reading them in it would
+    synchronise)."""
+
+    def __init__(self):
+        from anoddpm_torch import diffusion
+        from anoddpm_torch.ops import noise
+        self.places = ((diffusion, "sample_timesteps", "t"),
+                       (noise, "_seeds", "seeds"))
+        self.real = [getattr(m, name) for m, name, _ in self.places]
+        self.on, self.t, self.seeds = False, [], []
+        for (module, name, kind), fn in zip(self.places, self.real):
+            setattr(module, name, self._wrap(fn, kind))
+
+    def _wrap(self, fn, kind):
+        def wrapper(*a, **k):
+            out = fn(*a, **k)
+            if self.on:
+                getattr(self, kind).append(out)
+            return out
+        return wrapper
+
+    def close(self):
+        for (module, name, _), fn in zip(self.places, self.real):
+            setattr(module, name, fn)
+
+
+def jax_streams_path(card):
+    """Phase 18: the port on the JAX package's streams at s2d64's full
+    width (flax order, the band recipe's 8 substeps), through its own entry
+    points: the trainer's dispatch (`train.dispatch_of`) on its loop stream
+    (`train.loop_stream`) for epoch 0, and `detect.anomalous_metric_
+    calculation` on one volume group at DDIM-20 eta 1, each under
+    sync-debug with exact launches and with the t and seeds it drew held to
+    the JAX trainer's and detector's schedules (`jax_train_draws`,
+    `jax_detect_seeds`)."""
+    from anoddpm_torch import detect, diffusion
+    from anoddpm_torch.campaigns.seed_replication import (PROTOCOLS,
+                                                          train_args_for)
+    from anoddpm_torch.compat import jax_random as jr
+    from anoddpm_torch.data.datasets import dataset_from_args
+    from anoddpm_torch.data.pipeline import batch_iterator, prefetch_to_device
+    from anoddpm_torch.models.unet import NormSiLU
+    from anoddpm_torch.ops.noise import sampler_from_args
+    from anoddpm_torch.schedule import schedule_from_args
+    from anoddpm_torch.train import dispatch_of, loop_stream, new_train_state
+    args = train_args_for(JAX_STREAMS_CONFIG, 0, ROOT, "jax_rng")
+    b, substeps = int(args["Batch_Size"]), int(args["train_substeps"])
+    iters, seed = int(args["iters_per_epoch"]), int(args["seed"])
+    sched = schedule_from_args(args).to(DEVICE)
+    sampler = sampler_from_args(args)
+    step, max_t = dispatch_of(args, sched, sampler)
+    want = jax_train_draws(seed, iters, substeps, b, max_t)
+    # jax_random's torch path (a draw made on the card) against its numpy
+    # path on the host, at the train steps' keys and a VLB-sized normal
+    for t_key, noise_key, t, seeds in want:
+        require(torch.equal(jr.randint(t_key.on(DEVICE), (b,), 0, max_t).cpu(), t)
+                and torch.equal(jr.bits(noise_key.on(DEVICE), (b,)).cpu(), seeds),
+                "JAX streams: a train step's t or seeds differ on the card")
+    shape = (b, 256, 256, 1)
+    big = jr.key(2).split()[1]
+    got = jr.normal(big.on(DEVICE), shape).cpu()
+    require(torch.equal(jr.bits(big.on(DEVICE), shape).cpu(), jr.bits(big, shape)),
+            "JAX streams: the VLB's words differ on the card")
+    worst_ulps = int((got.view(torch.int32).long()
+                      - jr.normal(big, shape).view(torch.int32).long()).abs().max())
+    require(worst_ulps <= JAX_STREAMS_NORMAL_ULPS,
+            f"JAX streams: normals {worst_ulps} ulps from the host's")
+
+    # epoch 0 of seed 0: the JAX init, the band recipe's batches, the
+    # trainer's dispatch on its loop stream
+    warm = new_train_state(args, torch.device(DEVICE))
+    loader = prefetch_to_device(batch_iterator(
+        dataset_from_args(ROOT, args, train=True), b, shuffle=True), DEVICE,
+        substeps=substeps)
+    try:
+        batches = [next(loader)["image"] for _ in range(iters // substeps)]
+    finally:
+        loader.close()
+    dispatch_of(args, sched, sampler)[0](warm, batches[0],
+                                         loop_stream(args, DEVICE))   # lazy set-up
+    del warm
+    state = new_train_state(args, torch.device(DEVICE))
+    k2 = sum(isinstance(m, NormSiLU) for m in state.model.modules())
+    require(k2 == 71, f"JAX streams: {k2} norm+SiLU sites, s2d64 has 71")
+    total = [0] * 5
+    losses = []
+    recorder = DrawRecorder()
+    try:
+        recorder.on = True
+        with sync_debug_error():
+            for x in batches:
+                losses.append(counted_launches(
+                    "JAX streams: a dispatch of 8 steps",
+                    lambda x=x: step(state, x, loop_stream(args, DEVICE))["loss"],
+                    (substeps, 0, 0, k2 * substeps, 2 * k2 * substeps), total))
+        recorder.on = False
+        drawn = list(zip(recorder.t, recorder.seeds))
+        recorder.t, recorder.seeds = [], []
+        require(len(drawn) == iters and all(
+            torch.equal(t.cpu(), w[2]) and torch.equal(s.cpu(), w[3])
+            for (t, s), w in zip(drawn, want)),
+            "JAX streams: the trainer's t or seeds differ from the JAX "
+            "trainer's schedule")
+        loss = float(torch.stack(losses).mean())
+        require(math.isfinite(loss), f"JAX streams: epoch-0 loss {loss}")
+        log(f"JAX streams: the trainer's {iters} steps drew the JAX trainer's "
+            f"t and seeds; card draws bit-equal to the host's; normals at "
+            f"{shape} within {worst_ulps} ulps of the host's (erfinv)")
+        log(f"JAX streams: seed 0 epoch-0 loss {loss:.5f} beside the JAX "
+            f"package's TPU log {JAX_STREAMS_LOG_LOSS} "
+            f"({100 * (loss / JAX_STREAMS_LOG_LOSS - 1):+.2f}%, not held; "
+            f"{card}); launches {total}, {k2} sites")
+
+        # one volume group of the DDIM-20 eta 1 cell through the detector
+        protocol = PROTOCOLS["s2d64_ddim20_eta1"]
+        n_steps = int(protocol["ddim_steps"])
+        chain, det_total = diffusion.forward_backward_ddim, [0] * 5
+
+        def counted_chain(*a, **k):
+            with sync_debug_error():
+                return counted_launches(
+                    "JAX streams: a DDIM-20 detection group",
+                    lambda: chain(*a, **k), (n_steps + 1, 0, 0, k2 * n_steps, 0),
+                    det_total)
+        diffusion.forward_backward_ddim = counted_chain
+        os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+        try:
+            with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build"),
+                                             prefix="jax-streams-") as root:
+                recorder.on = True
+                det_args = copy.copy(args)
+                det_args.update(protocol)
+                summary = detect.anomalous_metric_calculation(
+                    args=det_args, root_dir=root,
+                    em=state.ema.eval(), sched=sched, max_volumes=1,
+                    device=DEVICE)
+                recorder.on = False
+        finally:
+            diffusion.forward_backward_ddim = chain
+        n = recorder.seeds[0].numel() if recorder.seeds else 0
+        want_seeds = jax_detect_seeds(seed, n_steps, n)
+        require(det_total == [n_steps + 1, 0, 0, k2 * n_steps, 0]
+                and len(recorder.seeds) == len(want_seeds) and all(
+                    torch.equal(s.cpu(), w)
+                    for s, w in zip(recorder.seeds, want_seeds)),
+                "JAX streams: the detector's seeds differ from the JAX "
+                "detector's schedule")
+        require(all(math.isfinite(summary[m]) for m in ("auc", "dice")),
+                f"JAX streams: detection summary {summary}")
+    finally:
+        recorder.close()
+    for i, c in enumerate(det_total):
+        total[i] += c
+    log(f"JAX streams: one DDIM-20 eta 1 group ({n} slices) through the "
+        f"detector drew the JAX detector's {len(want_seeds)} seed sets; "
+        f"launches {det_total}; AUC {summary['auc']:.4f}, Dice "
+        f"{summary['dice']:.4f}")
+
+    # ms per train step, a JAX key and a torch Generator in turns
+    from anoddpm_torch import training
+    one = training.make_train_step(sched, sampler, max_t=max_t)
+    streams = {"jax": loop_stream(args, DEVICE),
+               "torch": torch.Generator(device=DEVICE).manual_seed(0)}
+    ms = {name: [] for name in streams}
+    for _ in range(JAX_STREAMS_TURNS):
+        for name, stream in streams.items():
+            torch.cuda.synchronize()
+            t0 = time.time()
+            for _ in range(JAX_STREAMS_STEPS):
+                one(state, batches[0][0], stream)
+            torch.cuda.synchronize()
+            ms[name].append((time.time() - t0) / JAX_STREAMS_STEPS * 1e3)
+    log("JAX streams: ms per train step (s2d64, batch 8, flax order), in "
+        "turns: " + "; ".join(f"{n} " + ", ".join(f"{v:.2f}" for v in vals)
+                              for n, vals in ms.items()))
+    del state
+    torch.cuda.empty_cache()
+    return total
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3180,6 +3417,9 @@ def main():
     counts["measuring"], flax_rows = measuring_path(card)
     shapes_of("measuring")
     phase("measuring")
+    counts["jax_streams"] = jax_streams_path(card)
+    shapes_of("JAX streams")
+    phase("JAX streams")
     k2b_row["max_abs_err"] = max(k2b_row["max_abs_err"], k2b_worst,
                                  shape_worst[1])
     k1_row["max_abs_err"] = max(k1_row["max_abs_err"], k1_worst)

@@ -15,7 +15,7 @@
 #            volumes;
 #   f3       `campaigns.f3_s2d64`: that seed-0 model in three
 #            seed-replication cells against the JAX package's band;
-#   seeds [--flax-order] [--together] S...  for each seed S,
+#   seeds [--flax-order] [--jax-rng] [--together] S...  for each seed S,
 #            `campaigns.seed_replication S --skip=paper128`: args256syn64s2d
 #            seed S trained to its recipe (8 substeps, 600 epochs) and
 #            scored in the 9 s2d64 cells, one process per seed, one after
@@ -24,7 +24,11 @@
 #            aggregates cover the seeds already there.  --flax-order passes
 #            `--norm-order flax` (the JAX package's norm order; each seed's
 #            entries in its own results/torch_f3_flax_order_seeds<S>.json,
-#            logs flaxorder_seed<S>.log); --together starts the seeds'
+#            logs flaxorder_seed<S>.log); --jax-rng passes `--rng jax`
+#            (the seeds trained and scored on the JAX package's own draws,
+#            tokens 256syn64s2d_s<S>_jaxrng, in the flax order; entries in
+#            results/torch_f3_jax_rng_seeds<S>.json, logs
+#            jaxrng_seed<S>.log); --together starts the seeds'
 #            processes at once on the one card and waits for all of them,
 #            each writing its entries to a file of its own
 #            (`--own-file`: results/torch_seed_replication_seeds<S>.json
@@ -67,6 +71,7 @@ m=anoddpm_torch.campaigns
 expanded=()
 in_seeds=0
 seed_order=()
+seed_rng=()
 log_prefix=
 together=()
 for stage in "${stages[@]}"; do
@@ -75,6 +80,9 @@ for stage in "${stages[@]}"; do
   elif [ $in_seeds -eq 1 ] && [ "$stage" = --flax-order ]; then
     seed_order=(--norm-order flax)
     log_prefix=flaxorder_
+  elif [ $in_seeds -eq 1 ] && [ "$stage" = --jax-rng ]; then
+    seed_rng=(--rng jax)
+    log_prefix=jaxrng_
   elif [ $in_seeds -eq 1 ] && [ "$stage" = --together ]; then
     together=(together)
     expanded+=(together)
@@ -94,7 +102,7 @@ seed_cmd() {
   [ ${#seed_order[@]} -gt 0 ] || [ -e "$out/$seeds_file" ] \
     || cp "$seeds_file" "$out/$seeds_file"
   cmd=(python3 -m $m.seed_replication "$1" --skip=paper128 "${seed_order[@]}"
-       "${own_file[@]}" --root "$root")
+       "${seed_rng[@]}" "${own_file[@]}" --root "$root")
 }
 own_file=()
 [ ${#together[@]} -eq 0 ] || own_file=(--own-file)

@@ -21,6 +21,8 @@ def test_import_loads_no_jax():
             "anoddpm_torch.evaluation, anoddpm_torch.observe, "
             "anoddpm_torch.models.ema, anoddpm_torch.data.pipeline, "
             "anoddpm_torch.data.datasets, anoddpm_torch.compat.flax_params, "
+            "anoddpm_torch.compat.jax_random, anoddpm_torch.compat.flax_init, "
+            "anoddpm_torch.streams, "
             "anoddpm_torch.visualize, anoddpm_torch.graphs, "
             "anoddpm_torch.metrics, anoddpm_torch.diffusion, "
             "anoddpm_torch.data.nifti, anoddpm_torch.data.transforms, "
@@ -69,7 +71,9 @@ def test_import_loads_no_jax():
     "anoddpm_torch.campaigns.chain_flops", "anoddpm_torch.campaigns.mfu_push",
     "anoddpm_torch.campaigns.bf16_norm_ab",
     "anoddpm_torch.campaigns.substep_probe",
-    "anoddpm_torch.campaigns.trace_categories"])
+    "anoddpm_torch.campaigns.trace_categories",
+    "anoddpm_torch.compat.jax_random", "anoddpm_torch.compat.flax_init",
+    "anoddpm_torch.streams"])
 def test_new_modules_load_no_jax_or_writers(module):
     """Each module alone loads no jax, flax, optax, matplotlib or imageio."""
     code = (f"import sys, {module}; "

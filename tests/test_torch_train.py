@@ -389,7 +389,10 @@ def test_train_substeps_1_and_8_are_bit_equal(tmp_path, capsys):
     VLB line.  Each step draws t and then its noise from the one
     generator, the sweep draws after the epoch's last step, and the data
     order does not depend on the substeps: so a model trained at one step
-    per dispatch is a seed of the band recipe."""
+    per dispatch is a seed of the band recipe.  This holds under the
+    default `rng: "torch"`; under `rng: "jax"` the multi-step splits its
+    key once per substep, as the JAX trainer does, so 1 and 8 substeps draw
+    differently there (tests/test_torch_jax_streams.py)."""
     states, vlb = {}, {}
     for substeps in (1, 8):
         args = defaultdict_from_json({**SMOKE, "iters_per_epoch": 8,
