@@ -19,12 +19,13 @@ import numpy as np
 import torch
 
 from . import metrics as M
+from . import streams
 from .config import load_args
 from .data.datasets import anomalous_dataset_from_args, dataset_from_args
 from .data.pipeline import batch_iterator, to_nchw, to_nhwc
 from .device import DeviceLike, resolve_device
-from .models.context_encoder import (ContextEncoder, make_ce_train_step,
-                                     sliding_window_error)
+from .models.context_encoder import (ContextEncoder, context_encoder_from_seed,
+                                     make_ce_train_step, sliding_window_error)
 
 CE_METRICS = ("dice", "iou", "precision", "recall", "fpr", "auc")
 
@@ -35,23 +36,24 @@ def train_context_encoder(args, root_dir: str = ".", steps: int = 2000,
                           device: DeviceLike = None) -> ContextEncoder:
     """The baseline trained for `steps` Adam steps (lr 2e-3) on batches of
     the healthy set, each with random box masks; returned in eval mode.
-    The weights are drawn on the CPU from `seed`, the masks from seed + 1."""
+    The weights are drawn on the CPU from `seed`
+    (`context_encoder_from_seed`), the masks from the stream seeded
+    seed + 1, split once a step (`key(seed + 1)` under `rng: "jax"`, as
+    the JAX package splits it)."""
     device = resolve_device(device)
     loader = batch_iterator(dataset_from_args(root_dir, args, train=True),
                             batch_size, shuffle=True, seed=seed)
     sample = next(loader)["image"]      # the JAX trainer's init batch
-    with torch.random.fork_rng(devices=[]):
-        torch.manual_seed(seed)
-        model = ContextEncoder(in_channels=sample.shape[-1],
-                               base_channels=base_channels)
-    model = model.to(device)
+    model = context_encoder_from_seed(args, seed, sample.shape[-1],
+                                      base_channels).to(device)
     optimizer = torch.optim.Adam(model.parameters(), lr=lr)
     step = make_ce_train_step(model, optimizer)
-    generator = torch.Generator(device=device).manual_seed(seed + 1)
+    generator = streams.make(args, seed + 1, device)
     loss = torch.full((), float("nan"))
     for i in range(steps):
+        generator, sub = streams.of(generator).split()
         batch = to_nchw(next(loader)["image"]).to(device)
-        loss = step(batch, generator)
+        loss = step(batch, sub)
         if i % max(steps // 10, 1) == 0:
             print(f"CE step {i}: masked-recon loss {float(loss):.5f}",
                   flush=True)

@@ -15,6 +15,8 @@ SEED_REPLICATION = "results/torch_seed_replication.json"
 DIFFUSE_CALIBRATION = "results/torch_diffuse_calibration.json"
 TRAIN_LONGER = "results/torch_train_longer.json"
 DENSE_SWEEP = "results/torch_dense_sweep_full.json"
+DENSE_SWEEP_JAX_RNG = "results/torch_dense_sweep_jaxrng/sweep.json"
+DENSE_SWEEP_JAX_RNG_PAIRED = "results/torch_dense_sweep_jaxrng_paired.json"
 F3_S2D64 = "results/torch_f3_s2d64.json"
 F3_TWO_SAMPLE = "results/torch_f3_two_sample.json"
 F3_FLAX_ORDER = "results/torch_f3_flax_order_two_sample.json"

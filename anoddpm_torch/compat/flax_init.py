@@ -1,5 +1,7 @@
 """The JAX package's UNet initialisation, drawn in torch:
-`jax_init_state_dict(args, seed)`.
+`jax_init_state_dict(args, seed)`; with the same key derivation, the
+keys of flax's dropout masks in a train step (`dropout_keys`) and flax's
+init of the context encoder (`jax_context_encoder_state_dict`).
 
 The JAX trainer initialises its UNet with `model.init(init_key, x, t)`,
 `init_key` the second half of `jax.random.split(jax.random.key(seed))`
@@ -30,34 +32,19 @@ or (I, O).  No flax or jax is imported.
 
 from __future__ import annotations
 
-import hashlib
 import math
 from typing import Dict, Sequence
 
 import torch
 
+from .. import streams
 from ..config import resolve_in_channels
-from ..models.unet import Conv, Dense, GroupNorm32, unet_from_args
+from ..models.unet import Conv, Dense, GroupNorm32, ResBlock, unet_from_args
 from . import jax_random as jr
+from .jax_random import fold_in_static
 
 # the standard deviation of a unit normal truncated at +-2
 _TRUNC_STD = 0.87962566103423978
-
-
-def fold_in_static(k: jr.JaxKey, suffix: Sequence) -> jr.JaxKey:
-    """flax's `_fold_in_static`: one fold_in of the first four bytes of the
-    SHA-1 of the suffix's names and counts."""
-    if not suffix:
-        return k
-    m = hashlib.sha1()
-    for x in suffix:
-        if isinstance(x, str):
-            m.update(x.encode("utf-8"))
-        elif isinstance(x, int):
-            m.update(x.to_bytes((x.bit_length() + 7) // 8, byteorder="big"))
-        else:
-            raise ValueError(f"expected int or str, got {x!r}")
-    return k.fold_in(int.from_bytes(m.digest()[:4], byteorder="big"))
 
 
 def init_key(seed: int) -> jr.JaxKey:
@@ -104,4 +91,42 @@ def jax_init_state_dict(args, seed: int, device=None) -> Dict[str, torch.Tensor]
     missing = sorted(set(model.state_dict()) - set(out))
     if missing:
         raise KeyError(f"no JAX initialiser for {missing[:3]}")
+    return out
+
+
+def dropout_keys(model, drop_key: streams.Stream) -> Dict[str, streams.Stream]:
+    """The key of flax's `make_rng("dropout")` in each ResBlock's
+    `nn.Dropout` (`anoddpm_tpu/models/unet.py:133`) when the JAX step
+    applies the UNet with `rngs={"dropout": drop_key}`
+    (`anoddpm_tpu/training.py:84-97`), by the port's block name: the
+    block's scope pushes its path, the unnamed Dropout its auto-name
+    "Dropout_0", and its one draw counts 1, so the key is drop_key with
+    (path, "Dropout_0", 1) folded in statically.  A torch.Generator
+    passes as itself."""
+    return {name: streams.of(drop_key).fold_in_static(
+                (*name.split("."), "Dropout_0", 1))
+            for name, module in model.named_modules()
+            if isinstance(module, ResBlock) and module.dropout > 0}
+
+
+def jax_context_encoder_state_dict(model,
+                                   seed: int) -> Dict[str, torch.Tensor]:
+    """The `state_dict` of the port's `ContextEncoder` `model` holding what
+    flax's init of the JAX package's gives under `key(seed)`
+    (`anoddpm_tpu/baselines.py:40-42`): each `Conv_i` kernel lecun_normal
+    at `fold_in_static(key(seed), ("Conv_i", 1))`, the biases zeros, the
+    GroupNorm scales ones, on the CPU."""
+    root = jr.key(seed)
+    out = {}
+    for name, value in model.state_dict().items():
+        module, index, leaf = name.split(".")
+        if module == "convs" and leaf == "weight":
+            o, i, kh, kw = value.shape
+            k = fold_in_static(root, (f"Conv_{index}", 1))
+            value = lecun_normal(k, (kh, kw, i, o)).permute(3, 2, 0, 1)
+        elif module == "norms" and leaf == "weight":
+            value = torch.ones(value.shape)
+        else:
+            value = torch.zeros(value.shape)
+        out[name] = value.contiguous()
     return out

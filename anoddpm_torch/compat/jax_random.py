@@ -33,6 +33,7 @@ ulps of JAX's (the bound is held in `tests/test_torch_jax_random.py`);
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import math
 from typing import Sequence, Tuple, Union
 
@@ -117,6 +118,24 @@ def fold_in(k: JaxKey, data: int) -> JaxKey:
     if not 0 <= data <= MASK:
         raise OverflowError(f"fold_in data {data} out of bounds for uint32")
     return _with_words(k, threefry2x32(*k.words, 0, data))
+
+
+def fold_in_static(k: JaxKey, suffix: Sequence) -> JaxKey:
+    """flax's `_fold_in_static` (flax 0.12.3, `flax/core/scope.py:110-134`):
+    one fold_in of the first four bytes of the SHA-1 of the suffix's names
+    (UTF-8) and counts (big-endian bytes), with no separator, as
+    `flax_fix_rng_separator` is off by default."""
+    if not suffix:
+        return k
+    m = hashlib.sha1()
+    for x in suffix:
+        if isinstance(x, str):
+            m.update(x.encode("utf-8"))
+        elif isinstance(x, int):
+            m.update(x.to_bytes((x.bit_length() + 7) // 8, byteorder="big"))
+        else:
+            raise ValueError(f"expected int or str, got {x!r}")
+    return fold_in(k, int.from_bytes(m.digest()[:4], byteorder="big"))
 
 
 def _shape(shape) -> Tuple[int, ...]:
@@ -224,3 +243,52 @@ def randint(k: JaxKey, shape: Sequence[int], minval: int,
     value = (lo_v + offset) & MASK
     value = value - ((value > _I32[1]) * (1 << 32))
     return torch.from_numpy(np.asarray(value)) if host else value
+
+
+def bernoulli(k: JaxKey, p: float = 0.5,
+              shape: Sequence[int] = ()) -> torch.Tensor:
+    """`jax.random.bernoulli(key, p, shape)` in its default mode "low" with
+    a Python float p: `uniform(key, shape, float32) < fp32(p)` (`_bernoulli`,
+    :1075-1089), as a bool tensor on `k.device`."""
+    return uniform(k, shape) < _fp32(p)
+
+
+def _xla_cumsum(x: np.ndarray) -> np.ndarray:
+    """`jnp.cumsum` of a 1-D fp32 array as XLA on the CPU sums it: its
+    reduce-window rewrite scans blocks of 16 in order and adds to each
+    block the exclusive scan of the block sums, found the same way."""
+    n = x.shape[0]
+    blocks = np.concatenate([x, np.zeros(-n % 16, np.float32)]).reshape(-1, 16)
+    local = np.cumsum(blocks, axis=1, dtype=np.float32)
+    sums = local[:, -1]
+    carry = (_xla_cumsum(sums) if sums.shape[0] > 16
+             else np.cumsum(sums, dtype=np.float32))
+    carry = np.concatenate([np.zeros(1, np.float32), carry[:-1]])
+    return (local + carry[:, None]).reshape(-1)[:n]
+
+
+def choice(k: JaxKey, p: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
+    """`jax.random.choice(key, len(p), shape, replace=True, p=p)` for fp32
+    probabilities p on the host, returned as int64 on `k.device` (`choice`,
+    :810-814): the index of the first entry of cumsum(p) at or above
+    cumsum(p)[-1] * (1 - uniform), cumsum summed in XLA's order."""
+    shape = _shape(shape)
+    cum = _xla_cumsum(np.asarray(p, np.float32).reshape(-1))
+    u = uniform(k.on("cpu"), shape).numpy()
+    r = cum[-1] * (np.float32(1.0) - u)
+    idx = np.searchsorted(cum, r, side="left").astype(np.int64)
+    return torch.from_numpy(idx).reshape(shape).to(k.device)
+
+
+def permutation(k: JaxKey, n: int) -> torch.Tensor:
+    """`jax.random.permutation(key, n)` as int64 on `k.device` (`_shuffle`,
+    :700-728): ceil(3 ln n / ln(2^32 - 1)) rounds, each splitting the key
+    into (key, subkey) and sorting the values stably by `bits(subkey)`."""
+    n = int(n)
+    rounds = int(np.ceil(3 * np.log(max(1, n)) / np.log(MASK)))
+    x = torch.arange(n, dtype=torch.int64, device=k.device)
+    for _ in range(rounds):
+        k, sub = split(k)
+        order = torch.sort(bits(sub, (n,)).to(k.device), stable=True).indices
+        x = x[order]
+    return x

@@ -57,6 +57,7 @@ from .models.unet import unet_from_args
 from .ops.noise import make_noise_sampler, sampler_from_args
 from .parallel.mesh import Mesh, close_mesh, mesh_from_env, shard_sampler
 from .schedule import schedule_from_args
+from .streams import Stream
 
 METRIC_NAMES = ("dice", "ssim", "iou", "precision", "recall", "fpr", "auc")
 _USAGE = ("usage: python -m anoddpm_torch.detect [CHECKPOINT] <ARG_NUM> "
@@ -302,28 +303,32 @@ def _eval_inputs(args, root_dir, token, use_checkpoint, device):
 
 
 def _mean_recon(em, sched, x, t_distance, generator, sampler, avg):
-    """(avg, B, H, W, C) reconstructions of x by `forward_backward`:
-    `sampler`'s noise for the q-jump, Gaussian noise for the reverse
-    steps."""
+    """(the stream after the draws, (avg, B, H, W, C) reconstructions of x
+    by `forward_backward`): `sampler`'s noise for the q-jump, Gaussian
+    noise for the reverse steps; the stream split once per
+    reconstruction, as the JAX package's methods A and B split it."""
+    recons = []
     with torch.inference_mode():
-        return np.stack([to_nhwc(dmod.forward_backward(
-            em, sched, x, t_distance, generator, noise_sampler=sampler,
-            denoise_sampler=make_noise_sampler("gauss")))
-            for _ in range(avg)])
+        for _ in range(avg):
+            generator, sub = streams.of(generator).split()
+            recons.append(to_nhwc(dmod.forward_backward(
+                em, sched, x, t_distance, sub, noise_sampler=sampler,
+                denoise_sampler=make_noise_sampler("gauss"))))
+    return generator, np.stack(recons)
 
 
 def detection_A(args, em, sched, x_0, mask, file_id, root_dir: str = ".",
-                total_avg: int = 2, generator: Optional[torch.Generator] = None):
+                total_avg: int = 2, generator: Optional[Stream] = None):
     """Method A: simplex frequency 2^7 .. 2^1 times lambda in {50, 100, ...,
     < 0.6 T}; the mean of `total_avg` reconstructions; one comparison grid
     per pair, diffusion-videos/ARGS={n}/Anomalous/{file_id}/A/
     freq={i}-t={lambda}.png.  The q-jump goes to lambda - 1, as in
     `forward_backward` (the reference's method A jumps to lambda; the JAX
-    package normalises it so, PARITY.md); the reverse noise is Gaussian."""
-    streams.torch_only(args, "detection_A")
+    package normalises it so, PARITY.md); the reverse noise is Gaussian.
+    The stream is seeded 2 unless given (`key(2)` under `rng: "jax"`)."""
     device = _device_of(em)
     if generator is None:
-        generator = torch.Generator(device=device).manual_seed(2)
+        generator = streams.make(args, 2, device)
     out_dir = os.path.join(root_dir, "diffusion-videos",
                            f"ARGS={args['arg_num']}", "Anomalous",
                            str(file_id), "A")
@@ -332,8 +337,8 @@ def detection_A(args, em, sched, x_0, mask, file_id, root_dir: str = ".",
     for i in range(7, 0, -1):
         sampler = make_noise_sampler("simplex", frequency=float(2 ** i))
         for t_distance in range(50, int(int(args["T"]) * 0.6), 50):
-            output = _mean_recon(em, sched, x, t_distance, generator, sampler,
-                                 total_avg)
+            generator, output = _mean_recon(em, sched, x, t_distance,
+                                            generator, sampler, total_avg)
             output_mean = output.mean(axis=0)
             mse = ((output_mean - x_np) ** 2 * 2) - 1
             mse_threshold = ((mse > 0).astype(np.float32) * 2) - 1
@@ -346,16 +351,16 @@ def detection_A(args, em, sched, x_0, mask, file_id, root_dir: str = ".",
 
 def detection_B(args, em, sched, x_0, mask, file_id,
                 denoise_fn: str = "octave", root_dir: str = ".",
-                total_avg: int = 5, generator: Optional[torch.Generator] = None):
+                total_avg: int = 5, generator: Optional[Stream] = None):
     """Method B ("octave": simplex, 6 octaves at frequency 64, lambda <
     0.6 T) or C ("gauss", lambda < 0.8 T): per lambda in {50, 100, ...} the
     mean of `total_avg` reconstructions, a heatmap figure
     diffusion-videos/ARGS={n}/Anomalous/{file_id}/{denoise_fn}/
-    heatmap-t={lambda}.png, and its Dice; returns the Dice per lambda."""
-    streams.torch_only(args, "detection_B")
+    heatmap-t={lambda}.png, and its Dice; returns the Dice per lambda.
+    The stream is seeded 3 unless given (`key(3)` under `rng: "jax"`)."""
     device = _device_of(em)
     if generator is None:
-        generator = torch.Generator(device=device).manual_seed(3)
+        generator = streams.make(args, 3, device)
     out_dir = os.path.join(root_dir, "diffusion-videos",
                            f"ARGS={args['arg_num']}", "Anomalous",
                            str(file_id), denoise_fn)
@@ -370,8 +375,9 @@ def detection_B(args, em, sched, x_0, mask, file_id,
     x = to_nchw(x_np).to(device)
     dice_scores = []
     for t_distance in range(50, end, 50):
-        output_mean = _mean_recon(em, sched, x, t_distance, generator, sampler,
-                                  total_avg).mean(axis=0)
+        generator, output = _mean_recon(em, sched, x, t_distance, generator,
+                                        sampler, total_avg)
+        output_mean = output.mean(axis=0)
         vz.heatmap_figure(x_np, output_mean, mask,
                           os.path.join(out_dir, f"heatmap-t={t_distance}.png"))
         dice_scores.append(M.dice_coeff(x_np, output_mean, mask))
@@ -380,15 +386,15 @@ def detection_B(args, em, sched, x_0, mask, file_id,
 
 def detection_A_fixedT(args, em, sched, x_0, mask, end_freq: int = 6,
                        t_distance: int = 250,
-                       generator: Optional[torch.Generator] = None) -> np.ndarray:
+                       generator: Optional[Stream] = None) -> np.ndarray:
     """Fixed lambda = 250 at simplex frequency 2^1 .. 2^end_freq (forward and
     reverse noise): per frequency the rows x_0, x_noised, recon, square
-    error, thresholded map, mask, stacked into one NHWC array."""
-    streams.torch_only(args, "detection_A_fixedT")
-    del args
+    error, thresholded map, mask, stacked into one NHWC array.  The stream
+    is seeded 4 unless given (`key(4)` under `rng: "jax"`), and split in
+    three per frequency: the next stream, the q-jump's, the chain's."""
     device = _device_of(em)
     if generator is None:
-        generator = torch.Generator(device=device).manual_seed(4)
+        generator = streams.make(args, 4, device)
     x_np, mask = np.asarray(x_0, np.float32), np.asarray(mask)
     x = to_nchw(x_np).to(device)
     t_batch = torch.full((x.shape[0],), t_distance - 1, dtype=torch.int64,
@@ -396,11 +402,12 @@ def detection_A_fixedT(args, em, sched, x_0, mask, end_freq: int = 6,
     rows = []
     for i in range(1, end_freq + 1):
         sampler = make_noise_sampler("simplex", frequency=float(2 ** i))
+        generator, k_fwd, k_rev = streams.of(generator).split(3)
         with torch.inference_mode():
             x_noised = dmod.sample_q(sched, x, t_batch,
-                                     sampler(x.shape, t_batch, generator))
+                                     sampler(x.shape, t_batch, k_fwd))
             recon = to_nhwc(dmod.denoise_chain(em, sched, x_noised,
-                                                 t_distance, generator,
+                                                 t_distance, k_rev,
                                                  noise_sampler=sampler))
         mse = ((x_np - recon) ** 2 * 2) - 1
         thresh = ((mse > 0).astype(np.float32) * 2) - 1
@@ -428,15 +435,16 @@ def anomalous_validation(args=None, root_dir: str = ".",
     {slice}/t={t}.mp4 (or .gif) and the heatmap t={t}.png beside it; then
     detection_B ("gauss" for gauss configs, else "octave"), and for
     simplex_randParam detection_A too.  Returns the heatmap Dice per
-    slice."""
+    slice.  The stream is seeded 5 (`key(5)` under `rng: "jax"`) and split
+    in five per slice: the next stream, t's, the sequence's, method B's
+    and method A's (`anoddpm_tpu/detect.py:436-437`)."""
     args, em, sched = _eval_inputs(args, root_dir, token, use_checkpoint,
                                    device)
-    streams.torch_only(args, "anomalous_validation")
     device = _device_of(em)
     noise_sampler = sampler_from_args(args)
     noise_kind = str(args.get("noise_fn") or "simplex")
     d_set = anomalous_dataset_from_args(root_dir, args)
-    generator = torch.Generator(device=device).manual_seed(5)
+    generator = streams.make(args, 5, device)
     n = len(d_set) if max_volumes is None else min(len(d_set), max_volumes)
     sample_distance = int(args.get("sample_distance") or sched.num_timesteps)
     lo, hi = ((0.3, 0.8) if noise_kind == "gauss" else (0.1, 0.6))
@@ -457,13 +465,13 @@ def anomalous_validation(args=None, root_dir: str = ".",
                                f"ARGS={args['arg_num']}", "Anomalous", file_id)
         for s in range(min(images.shape[0], max_slices)):
             x_np, mask = images[s:s + 1], masks[s:s + 1]
-            timestep = int(torch.randint(t_lo, t_hi, (), generator=generator,
-                                         device=device))
+            generator, k_t, k_seq, k_b, k_a = streams.of(generator).split(5)
+            timestep = t_lo + int(streams.of(k_t).randint((), t_hi - t_lo))
             timestep = round(timestep / quantum) * quantum
             timestep = max(quantum, min(timestep, sched.num_timesteps))
             with torch.inference_mode():
                 recon, frames = dmod.forward_backward_sequence(
-                    em, sched, to_nchw(x_np).to(device), timestep, generator,
+                    em, sched, to_nchw(x_np).to(device), timestep, k_seq,
                     noise_sampler=noise_sampler, see_whole_sequence="whole")
             recon, frames = to_nhwc(recon), to_nhwc(frames)
             out_name = os.path.join(vol_dir, str(slice_ids[s]), f"t={timestep}")
@@ -474,12 +482,12 @@ def anomalous_validation(args=None, root_dir: str = ".",
             if noise_kind == "simplex_randParam":
                 detection_A(args, em, sched, x_np, mask, slice_tag,
                             root_dir=root_dir, total_avg=detection_avg,
-                            generator=generator)
+                            generator=k_a)
             detection_B(args, em, sched, x_np, mask, slice_tag,
                         denoise_fn=("gauss" if noise_kind == "gauss"
                                     else "octave"),
                         root_dir=root_dir, total_avg=detection_avg,
-                        generator=generator)
+                        generator=k_b)
         print(f"volume {file_id} [{i + 1}/{n}] done, "
               f"elapsed {time.time() - start:.0f}s", flush=True)
     return dice_data
@@ -510,13 +518,14 @@ def graph_data(args=None, root_dir: str = ".", token: Optional[str] = None,
     lambda, go through one masked `forward_backward_batched_lambda` chain of
     max(lambdas) steps; the last chunk is padded with its first lambda.
     Under a `mesh` the lambda batch (rounded up to a multiple of the world
-    size) is split over the ranks, and rank 0 scores and writes.  Returns
-    the pooled rows (None on the other ranks)."""
+    size) is split over the ranks, and rank 0 scores and writes.  The
+    stream is seeded 11 (`key(11)` under `rng: "jax"`) and split once per
+    chunk; every rank splits alike and draws the noise of the whole lambda
+    batch.  Returns the pooled rows (None on the other ranks)."""
     if mesh is not None and args is None:
         device = mesh.device
     args, em, sched = _eval_inputs(args, root_dir, token, use_checkpoint,
                                    device)
-    streams.torch_only(args, "graph_data")
     device = _device_of(em)
     noise_sampler = shard_sampler(sampler_from_args(args), mesh)
     main_rank = _is_main(mesh)
@@ -543,7 +552,7 @@ def graph_data(args=None, root_dir: str = ".", token: Optional[str] = None,
     vol_dir = os.path.join(root_dir, "metrics", f"ARGS={args['arg_num']}")
     if main_rank:
         os.makedirs(vol_dir, exist_ok=True)
-    generator = torch.Generator(device=device).manual_seed(11)
+    generator = streams.make(args, 11, device)
     per_volume = []
     for i in range(n):
         sample = d_set[i]
@@ -562,9 +571,10 @@ def graph_data(args=None, root_dir: str = ".", token: Optional[str] = None,
             pad = lambda_batch - len(lam_chunk)
             lamv = torch.tensor((lam_chunk + lam_chunk[:1] * pad)[rows_of],
                                 dtype=torch.int64, device=device)
+            generator, sub = streams.of(generator).split()
             with torch.inference_mode():
                 recon = dmod.forward_backward_batched_lambda(
-                    em, sched, x_rep, lamv, max_t, generator,
+                    em, sched, x_rep, lamv, max_t, sub,
                     noise_sampler=noise_sampler)
             recon = to_nhwc(recon if mesh is None else mesh.gather_rows(recon))
             if not main_rank:
@@ -639,7 +649,9 @@ def roc_data(tokens, labels=None, root_dir: str = ".",
     set and scored on its anomalous set (metrics/args{n}-ce.csv).  Under a
     `mesh` each volume's slices (wrap-padded to a multiple of the world
     size) are split over the ranks; rank 0 trains the context encoder,
-    scores, writes and returns the curves, the other ranks return None."""
+    scores, writes and returns the curves, the other ranks return None.
+    The stream is seeded 13 (`key(13)` under `rng: "jax"`) and split once
+    per volume."""
     device = mesh.device if mesh is not None else resolve_device(device)
     main_rank = _is_main(mesh)
     labels = labels or [f"args{t}" for t in tokens]
@@ -649,12 +661,11 @@ def roc_data(tokens, labels=None, root_dir: str = ".",
                                            device)
         for k, v in (args_override or {}).items():
             args[k] = v
-        streams.torch_only(args, "roc_data")
         noise_sampler = shard_sampler(sampler_from_args(args), mesh)
         td = min(t_distance, sched.num_timesteps)
         d_set = anomalous_dataset_from_args(root_dir, args)
         n = len(d_set) if max_volumes is None else min(len(d_set), max_volumes)
-        generator = torch.Generator(device=device).manual_seed(13)
+        generator = streams.make(args, 13, device)
 
         def fb(x, g):
             return dmod.forward_backward(em, sched, x, td, g,
@@ -670,8 +681,9 @@ def roc_data(tokens, labels=None, root_dir: str = ".",
             w = 1 if mesh is None else mesh.world_size
             block = _wrap_pad(images, images.shape[0] + (-images.shape[0]) % w,
                               images)
+            generator, sub = streams.of(generator).split()
             recon = _sharded_recon(fb, block, mesh, device,
-                                   generator)[:images.shape[0]]
+                                   sub)[:images.shape[0]]
             all_scores.append(((images - recon) ** 2).reshape(-1))
             all_labels.append(masks.reshape(-1))
         if main_rank:

@@ -441,18 +441,21 @@ def make_loss_weights(loss_weight: str, num_timesteps: int):
 
 def sample_t_with_weights(generator: Stream, batch: int,
                           weight_table: torch.Tensor):
-    """t drawn with probability p[t] = w[t] / sum(w), and its importance
-    weight 1 / (N p[t]).
+    """t drawn with probability p[t] = w[t] / sum(w) from the host table w,
+    and its importance weight 1 / (N p[t]), both on the generator's device.
+    Under a JaxKey t is `jax.random.choice(key, N, (batch,), p=p)`, made
+    on the host and copied (`anoddpm_tpu/diffusion.py:453-466`).
 
     Deliberate deviation kept from the JAX package: the textbook weight
     1 / (N p[t]), where the reference computes (1 / N) p[t], which scales
-    the loss by about p^2 N^2 against the unbiased estimator.  No shipped
-    config sets loss_weight, so shipped behaviour is the same."""
-    generator = streams.of(generator).torch_generator("loss_weight")
-    weight_table = weight_table.to(generator.device)
+    the loss by about p^2 N^2 against the unbiased estimator.  Of the
+    shipped configs only args_dptest sets loss_weight ("prop-t"), so its
+    loss is the one that differs from the reference's."""
+    view = streams.of(generator)
     p = weight_table / weight_table.sum()
-    t = torch.multinomial(p, batch, replacement=True, generator=generator)
-    return t, 1.0 / (weight_table.shape[0] * p[t])
+    t = view.choice(p, batch)
+    weights = streams.host_to(1.0 / (weight_table.shape[0] * p), view.device)
+    return t, weights[t]
 
 
 def calc_total_vlb(model_fn: ModelFn, sched: Schedule, x_0: torch.Tensor,

@@ -70,14 +70,16 @@ def make_prediction(real, recon, mask, x_t, threshold: float = 0.5,
     return panels, pred
 
 
-def _sequence_fb(em, sched, t_distance: int, sampler, whole: str = "whole"):
+def _sequence_fb(args, em, sched, t_distance: int, sampler,
+                 whole: str = "whole"):
     """fb(x NHWC, seed) -> (recon, frames (F, B, H, W, C)) by
-    `forward_backward_sequence` with `sampler`, from a generator seeded
-    `seed` on the model's device."""
+    `forward_backward_sequence` with `sampler`, from the stream `args`
+    seeds `seed` on the model's device (`key(seed)` under `rng: "jax"`,
+    as the JAX package's figures key it)."""
     device = _device_of(em)
 
     def fb(x, seed):
-        generator = torch.Generator(device=device).manual_seed(seed)
+        generator = streams.make(args, seed, device)
         with torch.inference_mode():
             recon, frames = dmod.forward_backward_sequence(
                 em, sched, to_nchw(x).to(device), t_distance, generator,
@@ -116,11 +118,10 @@ def ano_outputs(args, em, sched, root_dir: str = ".", n_attempts: int = 3,
     seeded attempt * 97 + row: final-outputs/ARGS={n}/attempt={k}-{threshold}
     -predictions.png (the 6-panel rows) and ...-sequence.png (13-column
     filmstrips with prediction and mask)."""
-    streams.torch_only(args, "figures.ano_outputs")
     td = max(1, min(t_distance, sched.num_timesteps))
     out_dir = os.path.join(_out_dir(root_dir), f"ARGS={args['arg_num']}")
     os.makedirs(out_dir, exist_ok=True)
-    fb = _sequence_fb(em, sched, td, sampler_from_args(args))
+    fb = _sequence_fb(args, em, sched, td, sampler_from_args(args))
     for attempt in range(n_attempts):
         pred_rows, seq_rows = [], []
         n_cols = 13
@@ -152,7 +153,6 @@ def ce_outputs(args, ce_model=None, root_dir: str = ".", n_attempts: int = 3,
     final-outputs/ARGS={n}/ce-attempt={k}-predictions.png.  Without a
     trained `ce_model` one is trained for `ce_train_steps` on the config's
     healthy set."""
-    streams.torch_only(args, "figures.ce_outputs")
     from .baselines import train_context_encoder
     from .models.context_encoder import sliding_window_inpaint
     if ce_model is None:
@@ -206,7 +206,7 @@ def test_set_outputs(simplex_token, gauss_token, root_dir: str = ".",
         def get_image(i):
             return np.asarray(d_set[i % len(d_set)]["image"])[None]
 
-    fbs = {tag: _sequence_fb(em, sched, td, sampler_from_args(args_m))
+    fbs = {tag: _sequence_fb(args_m, em, sched, td, sampler_from_args(args_m))
            for tag, (args_m, em, sched) in models.items()}
     for attempt in range(n_attempts):
         imgs = [get_image(attempt * rows + r) for r in range(rows)]
@@ -227,11 +227,10 @@ def denoise_sequence(args, em, sched, root_dir: str = ".",
                      t_distance: Optional[int] = None, n_cols: int = 13):
     """A 13-frame forward/backward filmstrip of the first anomalous slice
     at lambda = sample_distance / 2: final-outputs/ARGS={n}-sequence.png."""
-    streams.torch_only(args, "figures.denoise_sequence")
     x, _ = _first_slice(args, root_dir)
     if t_distance is None:
         t_distance = int(args["sample_distance"]) // 2
-    fb = _sequence_fb(em, sched, t_distance, sampler_from_args(args))
+    fb = _sequence_fb(args, em, sched, t_distance, sampler_from_args(args))
     _, frames = fb(x, 0)
     idxs = np.linspace(0, frames.shape[0] - 1, n_cols).astype(int)
     strip = np.concatenate([frames[i] for i in idxs], axis=0)
@@ -245,9 +244,9 @@ def masked_comparison(args, em, sched, root_dir: str = ".",
     """`make_prediction` rows of the first slice of `n_volumes` volumes
     ("half" sequences, generator seeded by the volume's index):
     final-outputs/ARGS={n}-masked-comparison.png."""
-    streams.torch_only(args, "figures.masked_comparison")
     td = min(t_distance, sched.num_timesteps)
-    fb = _sequence_fb(em, sched, td, sampler_from_args(args), whole="half")
+    fb = _sequence_fb(args, em, sched, td, sampler_from_args(args),
+                      whole="half")
     rows = []
     for i in range(n_volumes):
         x, mask = _first_slice(args, root_dir, index=i)
@@ -264,9 +263,8 @@ def diffusion_videos(args, em, sched, root_dir: str = ".", n_volumes: int = 2):
     """A "whole" partial-diffusion video of the first slice of `n_volumes`
     volumes at lambda = sample_distance / 2:
     final-outputs/ARGS={n}-video-{i}.mp4."""
-    streams.torch_only(args, "figures.diffusion_videos")
     lam = int(args["sample_distance"]) // 2
-    fb = _sequence_fb(em, sched, lam, sampler_from_args(args))
+    fb = _sequence_fb(args, em, sched, lam, sampler_from_args(args))
     for i in range(n_volumes):
         x, _ = _first_slice(args, root_dir, index=i)
         _, frames = fb(x, i)
@@ -280,12 +278,12 @@ def gauss_simplex_comparison(args, em, sched, root_dir: str = ".",
     """`make_prediction` rows of the first slice under Gaussian, then
     simplex noise (generator seeded 7):
     final-outputs/ARGS={n}-gauss-vs-simplex.png."""
-    streams.torch_only(args, "figures.gauss_simplex_comparison")
     x, mask = _first_slice(args, root_dir)
     td = min(t_distance, sched.num_timesteps)
     rows = []
     for kind in ("gauss", "simplex"):
-        fb = _sequence_fb(em, sched, td, make_noise_sampler(kind), whole="half")
+        fb = _sequence_fb(args, em, sched, td, make_noise_sampler(kind),
+                          whole="half")
         recon, frames = fb(x, 7)
         mask_panel = mask if mask is not None else np.zeros(recon.shape, np.float32)
         panels, _ = make_prediction(x, recon, mask_panel, frames[0])
@@ -311,14 +309,13 @@ def gauss_varying_t(args, em, sched, root_dir: str = ".",
                     lambdas=(250, 500, 750)):
     """Gaussian reconstructions of the first slice at each lambda (clamped
     to T; generator seeded lambda): final-outputs/ARGS={n}-gauss-varyingT.png."""
-    streams.torch_only(args, "figures.gauss_varying_t")
     x, mask = _first_slice(args, root_dir)
     device = _device_of(em)
     sampler = make_noise_sampler("gauss")
     rows = [x]
     for lam in lambdas:
         lam = min(lam, sched.num_timesteps)
-        generator = torch.Generator(device=device).manual_seed(lam)
+        generator = streams.make(args, lam, device)
         with torch.inference_mode():
             recon = dmod.forward_backward(em, sched, to_nchw(x).to(device), lam,
                                           generator, noise_sampler=sampler)

@@ -23,6 +23,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from .. import streams
+from ..compat.flax_init import jax_context_encoder_state_dict
+from ..streams import Stream
 from .unet import lecun_normal_, same_padding
 
 
@@ -101,16 +104,33 @@ class ContextEncoder(nn.Module):
         return visible + out * mask
 
 
-def random_box_mask(generator: torch.Generator, shape: Tuple[int, ...],
+def random_box_mask(generator: Stream, shape: Tuple[int, ...],
                     frac: float = 0.25) -> torch.Tensor:
     """(B, 1, H, W) square occlusion masks, each side ~frac of the image's,
-    at positions drawn on the generator's device."""
+    at positions on the generator's device: the stream split in two, the
+    rows drawn from the first and the columns from the second (JAX
+    `models/context_encoder.py:60-68`)."""
     b, _, h, w = shape
     bh, bw = max(int(h * frac), 1), max(int(w * frac), 1)
-    device = generator.device
-    ys = torch.randint(0, h - bh + 1, (b,), generator=generator, device=device)
-    xs = torch.randint(0, w - bw + 1, (b,), generator=generator, device=device)
+    ky, kx = streams.of(generator).split()
+    ys = streams.of(ky).randint((b,), h - bh + 1)
+    xs = streams.of(kx).randint((b,), w - bw + 1)
     return _box(ys, xs, bh, bw, h, w)
+
+
+def context_encoder_from_seed(args, seed: int, in_channels: int = 1,
+                              base_channels: int = 32) -> ContextEncoder:
+    """The baseline's initial weights from `seed`, on the CPU: under `rng:
+    "jax"` flax's init of the JAX package's ContextEncoder at `key(seed)`
+    (`compat.flax_init.jax_context_encoder_state_dict`), else lecun_normal
+    from torch's global generator seeded `seed` (its state kept)."""
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        model = ContextEncoder(in_channels=in_channels,
+                               base_channels=base_channels)
+    if streams.rng_of(args) == "jax":
+        model.load_state_dict(jax_context_encoder_state_dict(model, seed))
+    return model
 
 
 def _box(ys, xs, bh: int, bw: int, h: int, w: int) -> torch.Tensor:
@@ -133,7 +153,7 @@ def make_ce_train_step(model: ContextEncoder, optimizer: torch.optim.Optimizer):
     """`step(batch, generator, mask=None)` -> loss: one optimizer step on
     the masked L2 loss, with a random box mask unless one is given."""
 
-    def step(batch: torch.Tensor, generator: torch.Generator,
+    def step(batch: torch.Tensor, generator: Stream,
              mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         if mask is None:
             mask = random_box_mask(generator, batch.shape)

@@ -40,12 +40,14 @@ How the norms compute is the option `norm_impl`:
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from .. import streams
+from ..streams import Stream
 from ..ops.group_norm_silu import (_FlaxSite, _flax_site, eligible,
                                    group_norm_silu, group_norm_silu_flax)
 
@@ -236,7 +238,7 @@ class ResBlock(nn.Module):
         self.skip = (Conv(cin, cout, 3 if use_conv_skip else 1, dtype)
                      if cin != cout else None)
 
-    def forward(self, x, emb):
+    def forward(self, x, emb, dropout_stream=None):
         h = self.norm_in(x)
         if self.up:
             h = F.interpolate(h, scale_factor=2, mode="nearest")
@@ -247,7 +249,10 @@ class ResBlock(nn.Module):
         h = self.conv_in(h)
         h = h + self.emb_proj(F.silu(emb)).to(h.dtype)[:, :, None, None]
         h = self.norm_out(h)
-        h = F.dropout(h, self.dropout, self.training)
+        if self.training and dropout_stream is not None:
+            h = streams.of(dropout_stream).dropout(h, self.dropout)
+        else:
+            h = F.dropout(h, self.dropout, self.training)
         h = self.conv_out(h)
         if self.skip is not None:
             x = self.skip(x)
@@ -388,6 +393,9 @@ class UNet(nn.Module):
         self.out_conv = Conv(ch, in_channels * space_to_depth ** 2, 3,
                              torch.float32, zero=True)
         self._plan = plan
+        # each ResBlock's dropout stream by block name, set by the train
+        # step (`compat.flax_init.dropout_keys`); empty: `F.dropout`
+        self.dropout_streams: Dict[str, Stream] = {}
 
     def forward(self, x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
         cdt = self.stem.dtype
@@ -408,7 +416,8 @@ class UNet(nn.Module):
                 h = torch.cat([h, skips.pop()], dim=1)
             else:
                 block = getattr(self, step)
-                h = block(h, emb) if isinstance(block, ResBlock) else block(h)
+                h = (block(h, emb, self.dropout_streams.get(step))
+                     if isinstance(block, ResBlock) else block(h))
         h = self.out_norm(h.to(in_dtype))
         h = self.out_conv(h)
         if self.s2d > 1:

@@ -6,13 +6,14 @@ and the result lies on the generator's device, with every random draw (the
 Gaussian values, the lattice-hash seeds) made there from that generator.
 
 The generator may instead be a `compat.jax_random.JaxKey` (config key
-`rng: "jax"`): every draw goes through `streams.of(generator)`, so that a
-sampler draws what the JAX package's sampler draws from that key,
-`bits(key, (B * C,))` as K1's seeds for simplex and `normal(key, NHWC
-shape)` for Gaussian noise.  The kinds whose JAX draws are not ported
-(simplex_randParam, random, the table path, simplex_2d) take the
-generator through `torch_generator`, which raises under a JaxKey; they
-never fall back to another stream.
+`rng: "jax"`): every draw and split goes through `streams.of(generator)`,
+so that a sampler draws what the JAX package's sampler draws from that
+key: `bits(key, (B * C,))` as the seeds of simplex and simplex_2d,
+`normal(key, NHWC shape)` for Gaussian noise, a split then `randint` of
+the table row and the seeds for simplex_randParam, a split then a
+`bernoulli` coin for random, and for the table path a split into one key
+per field, each field's permutation `permutation(key, 256)`.  A
+torch.Generator passes through the splits as itself and draws as before.
 
 By default every (sample, channel) pair gets its own simplex field;
 `share_batch=True` repeats one field per channel over the batch, as the
@@ -55,12 +56,6 @@ def _rand_param_table(device: torch.device) -> torch.Tensor:
     return table.to(device)
 
 
-def _torch_only(kind: str, generator: Stream) -> torch.Generator:
-    """The torch.Generator of a noise kind without a JAX stream in the
-    port."""
-    return streams.of(generator).torch_generator(f"noise kind {kind!r}")
-
-
 def _seeds(n: int, generator: Stream) -> torch.Tensor:
     """n uint32 lattice-hash seeds, as int64, on the generator's device:
     drawn there from a torch.Generator, or `bits(key, (n,))` of a JaxKey
@@ -68,21 +63,20 @@ def _seeds(n: int, generator: Stream) -> torch.Tensor:
     return streams.of(generator).seeds(n)
 
 
-def _perms(n: int, generator: torch.Generator):
+def _perms(n: int, generator: Stream):
     """n permutation tables and their gradient ids, (n, 256) int64 each."""
     return sx.perm_tables(n, generator)
 
 
-def _param_index(generator: torch.Generator) -> torch.Tensor:
+def _param_index(generator: Stream) -> torch.Tensor:
     """The row of RAND_PARAM_TABLE for one call, a 0-d tensor on the
     generator's device."""
-    return torch.randint(0, len(RAND_PARAM_TABLE), (), generator=generator,
-                         device=generator.device)
+    return streams.of(generator).randint((), len(RAND_PARAM_TABLE))
 
 
-def _coin(generator: torch.Generator) -> torch.Tensor:
+def _coin(generator: Stream) -> torch.Tensor:
     """A fair coin, a 0-d bool tensor on the generator's device."""
-    return torch.rand((), generator=generator, device=generator.device) < 0.5
+    return streams.of(generator).bernoulli(0.5, ())
 
 
 def gaussian_noise(shape: Tuple[int, ...], t: torch.Tensor,
@@ -94,7 +88,7 @@ def gaussian_noise(shape: Tuple[int, ...], t: torch.Tensor,
 gaussian_noise.fingerprint = ("gauss",)
 
 
-def _plane_times(t, b: int, c: int, generator: torch.Generator) -> torch.Tensor:
+def _plane_times(t, b: int, c: int, generator: Stream) -> torch.Tensor:
     """The (B * C,) fp32 planes of the (sample, channel) fields: t[b] for
     every channel of sample b (expanded, not `repeat_interleave`, which can
     read its size back from the card)."""
@@ -104,7 +98,7 @@ def _plane_times(t, b: int, c: int, generator: torch.Generator) -> torch.Tensor:
 
 
 def simplex_noise(shape: Tuple[int, ...], t: torch.Tensor,
-                  generator: torch.Generator, octaves: int = 6,
+                  generator: Stream, octaves: int = 6,
                   persistence: float = 0.8, frequency: float = 64.0,
                   share_batch: bool = False, table: bool = False) -> torch.Tensor:
     """Multi-octave simplex field(s) for NCHW `shape`; the field of sample b
@@ -118,7 +112,7 @@ def simplex_noise(shape: Tuple[int, ...], t: torch.Tensor,
         # one field per channel at t[0], repeated over the batch
         t_fields = t_fields[:c].contiguous()
     if table:
-        perms, gids = _perms(n, _torch_only("simplex (table path)", generator))
+        perms, gids = _perms(n, generator)
         fields = sx.batched_fractal3_fixed_t_table(
             perms, gids, t_fields, (h, w), octaves, persistence, frequency)
     else:
@@ -131,13 +125,12 @@ def simplex_noise(shape: Tuple[int, ...], t: torch.Tensor,
 
 
 def simplex2d_noise(shape: Tuple[int, ...], t: torch.Tensor,
-                    generator: torch.Generator, octaves: int = 6,
+                    generator: Stream, octaves: int = 6,
                     persistence: float = 0.8,
                     frequency: float = 64.0) -> torch.Tensor:
     """Timestep-independent 2-D octave fields (hash path, plain PyTorch),
     one per (sample, channel); `t` is ignored."""
     del t
-    generator = _torch_only("simplex_2d", generator)
     b, c, h, w = shape
     fields = sx.batched_fractal2(_seeds(b * c, generator), (h, w), octaves,
                                  persistence, frequency)
@@ -145,7 +138,7 @@ def simplex2d_noise(shape: Tuple[int, ...], t: torch.Tensor,
 
 
 def simplex_volume_noise(shape_zhw: Tuple[int, int, int],
-                         generator: torch.Generator, octaves: int = 1,
+                         generator: Stream, octaves: int = 1,
                          persistence: float = 0.5,
                          frequency: float = 32.0) -> torch.Tensor:
     """A (Z, H, W) octave volume whose z-coordinate is an axis of the output,
@@ -155,17 +148,18 @@ def simplex_volume_noise(shape_zhw: Tuple[int, int, int],
 
 
 def simplex_rand_param_noise(shape: Tuple[int, ...], t: torch.Tensor,
-                             generator: torch.Generator) -> torch.Tensor:
+                             generator: Stream) -> torch.Tensor:
     """Simplex fields with one (octaves, persistence, frequency) triple per
     call, drawn on the device from RAND_PARAM_TABLE and shared by every
     (sample, channel) field, as the JAX package does (PARITY.md): one launch
     of K1's parameters-from-device entry, no host sync."""
-    generator = _torch_only("simplex_randParam", generator)
     b, c, h, w = shape
-    params = torch.index_select(_rand_param_table(generator.device), 0,
-                                _param_index(generator).reshape(1))[0]
+    key_param, key_seeds = streams.of(generator).split()
+    index = _param_index(key_param)
+    params = torch.index_select(_rand_param_table(index.device), 0,
+                                index.reshape(1))[0]
     fields = sx.batched_fractal3_fixed_t_params(
-        _seeds(b * c, generator), _plane_times(t, b, c, generator), (h, w),
+        _seeds(b * c, key_seeds), _plane_times(t, b, c, generator), (h, w),
         params)
     return fields.view(b, c, h, w)
 
@@ -197,10 +191,10 @@ def make_noise_sampler(kind: str, octaves: int = 6, persistence: float = 0.8,
     if kind == "random":
         def random_noise(shape, t, generator):
             # both drawn, the coin picks on the device: no host sync
-            generator = _torch_only("random", generator)
-            coin = _coin(generator)
-            gauss = gaussian_noise(shape, t, generator)
-            simplex = simplex_noise(shape, t, generator, octaves, persistence,
+            key_flip, key_noise = streams.of(generator).split()
+            coin = _coin(key_flip)
+            gauss = gaussian_noise(shape, t, key_noise)
+            simplex = simplex_noise(shape, t, key_noise, octaves, persistence,
                                     frequency, share_batch, table)
             return torch.where(coin, gauss, simplex)
         random_noise.fingerprint = ("random", octaves, persistence, frequency,

@@ -32,6 +32,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import streams
+from ..streams import Stream
 from . import _build
 
 STRETCH3 = -1.0 / 6.0  # (1/sqrt(3+1)-1)/3
@@ -339,11 +341,12 @@ def perm_tables_from_seed(seed: int = 3):
     return perm, (perm % 24).astype(np.int32)
 
 
-def perm_tables(n: int, generator: torch.Generator):
-    """n independent permutations of 0..255, drawn on the generator's device
-    without a host sync: (perm, perm % 24), int64 (n, 256)."""
-    keys = torch.rand((n, 256), generator=generator, device=generator.device)
-    perm = keys.argsort(dim=1)
+def perm_tables(n: int, generator: Stream):
+    """n independent permutations of 0..255 on the generator's device
+    without a host sync: (perm, perm % 24), int64 (n, 256).  A JaxKey's
+    are the JAX table path's, one `jax.random.permutation` per key of a
+    split in n (`anoddpm_tpu/ops/simplex.py:111-114, 758-759`)."""
+    perm = streams.of(generator).permutation(n, 256)
     return perm, perm % 24
 
 

@@ -6,17 +6,23 @@ threefry draws).  Every draw and every split in the port goes through
 `of(stream)`, whose view has the same methods for both, so that no other
 module tells the two apart:
 
-- `split(num)` and `fold_in(data)`: a JaxKey's `jax.random.split` and
-  `fold_in`, placed where the JAX package places them; a torch.Generator is
-  one stream drawn in order, so it stands for every part of a split and
-  for its own fold-in, and draws in the same order as before;
+- `split(num)`, `fold_in(data)` and `fold_in_static(suffix)`: a JaxKey's
+  `jax.random.split` and `fold_in`, and flax's fold-in of a module path,
+  placed where the JAX package places them; a torch.Generator is one
+  stream drawn in order, so it stands for every part of a split and for
+  its own fold-in, and draws in the same order as before;
 - `randint`, `seeds` and `normal`: t, K1's uint32 seeds and Gaussian noise
   on the stream's device.  A JaxKey's randint and seeds are made on the
   host and copied from pinned memory (no sync); its normal is drawn on
   its device, in the JAX package's NHWC layout, and transposed;
-- `torch_generator(what)`: the generator behind a draw whose JAX stream
-  the port does not follow; under a JaxKey it raises, naming `what`,
-  rather than draw from another stream;
+- `bernoulli`, `choice` and `permutation`: coins and dropout masks, t drawn
+  by a loss-weight table, and the table path's permutations.  A JaxKey's
+  are `jax.random`'s, made on the host and copied as randint's, except
+  a dropout-sized bernoulli, which is drawn on the device (in NHWC, as
+  flax draws it, and transposed);
+- `dropout(x, rate)`: flax's `nn.Dropout` with the JaxKey as its rng, or
+  `F.dropout` (torch's global generator, as before) for a
+  torch.Generator;
 - `hand_on(mesh)`: after rank 0 alone drew, the other ranks take its
   generator's state; every rank splits a JaxKey alike, so there is
   nothing to hand on.
@@ -30,6 +36,7 @@ from __future__ import annotations
 from typing import Tuple, Union
 
 import torch
+import torch.nn.functional as F
 
 from .compat import jax_random as jr
 from .compat.jax_random import JaxKey
@@ -54,18 +61,6 @@ def make(args, seed: int, device) -> Stream:
     return torch.Generator(device=torch.device(device)).manual_seed(seed)
 
 
-def torch_only(args, what: str) -> None:
-    """Raise under `rng: "jax"` for an entry point whose JAX key schedule
-    the port does not follow, rather than draw from torch's streams."""
-    if rng_of(args) == "jax":
-        raise NotImplementedError(_no_jax_stream(what))
-
-
-def _no_jax_stream(what: str) -> str:
-    return (f"{what} has no JAX stream in the port (rng: jax); run it with "
-            f"rng: torch")
-
-
 def host_to(t: torch.Tensor, device: torch.device) -> torch.Tensor:
     """A host tensor on `device`; to a card from pinned memory, which does
     not synchronise."""
@@ -87,6 +82,9 @@ class _TorchView:
     def fold_in(self, data: int) -> Stream:
         return self.generator
 
+    def fold_in_static(self, suffix) -> Stream:
+        return self.generator
+
     def randint(self, shape, high: int) -> torch.Tensor:
         return torch.randint(0, high, tuple(shape), generator=self.generator,
                              device=self.device)
@@ -99,8 +97,21 @@ class _TorchView:
         return torch.randn(tuple(shape), generator=self.generator,
                            device=self.device, dtype=torch.float32)
 
-    def torch_generator(self, what: str) -> torch.Generator:
-        return self.generator
+    def bernoulli(self, p: float, shape) -> torch.Tensor:
+        return torch.rand(tuple(shape), generator=self.generator,
+                          device=self.device) < p
+
+    def choice(self, p: torch.Tensor, n: int) -> torch.Tensor:
+        return torch.multinomial(host_to(p, self.device), n, replacement=True,
+                                 generator=self.generator)
+
+    def permutation(self, n: int, size: int) -> torch.Tensor:
+        keys = torch.rand((n, size), generator=self.generator,
+                          device=self.device)
+        return keys.argsort(dim=1)
+
+    def dropout(self, x: torch.Tensor, rate: float) -> torch.Tensor:
+        return F.dropout(x, rate, True)
 
     def hand_on(self, mesh) -> None:
         if mesh is not None:
@@ -120,6 +131,9 @@ class _JaxView:
     def fold_in(self, data: int) -> Stream:
         return self.key.fold_in(data)
 
+    def fold_in_static(self, suffix) -> Stream:
+        return jr.fold_in_static(self.key, suffix)
+
     def randint(self, shape, high: int) -> torch.Tensor:
         return host_to(jr.randint(self.key.on("cpu"), shape, 0, high),
                        self.device)
@@ -133,8 +147,35 @@ class _JaxView:
         b, c, h, w = shape
         return jr.normal(self.key, (b, h, w, c)).permute(0, 3, 1, 2)
 
-    def torch_generator(self, what: str) -> torch.Generator:
-        raise NotImplementedError(_no_jax_stream(what))
+    def bernoulli(self, p: float, shape) -> torch.Tensor:
+        if len(shape) == 4:     # a dropout mask: flax draws it in NHWC
+            b, c, h, w = shape
+            return jr.bernoulli(self.key, p, (b, h, w, c)).permute(0, 3, 1, 2)
+        return host_to(jr.bernoulli(self.key.on("cpu"), p, shape), self.device)
+
+    def choice(self, p: torch.Tensor, n: int) -> torch.Tensor:
+        return host_to(jr.choice(self.key.on("cpu"), p, (n,)), self.device)
+
+    def permutation(self, n: int, size: int) -> torch.Tensor:
+        """n permutations of range(size): the key split in n, one
+        `jax.random.permutation` each (the JAX table path's)."""
+        perms = torch.stack([jr.permutation(k.on("cpu"), size)
+                             for k in self.key.split(n)])
+        return host_to(perms, self.device)
+
+    def dropout(self, x: torch.Tensor, rate: float) -> torch.Tensor:
+        """flax's `nn.Dropout` (flax 0.12.3, `linen/stochastic.py:92-107`)
+        with this key as its rng: x / keep where `bernoulli(key, keep,
+        NHWC shape)`, else 0; keep rounded to x's dtype, as JAX rounds a
+        Python float against a bf16 array."""
+        if rate == 0:
+            return x
+        if rate == 1:
+            return torch.zeros_like(x)
+        keep = 1.0 - rate
+        mask = self.bernoulli(keep, x.shape)
+        scale = float(torch.tensor(keep, dtype=torch.float64).to(x.dtype))
+        return torch.where(mask, x / scale, 0.0)
 
     def hand_on(self, mesh) -> None:
         pass

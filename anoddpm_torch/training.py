@@ -16,7 +16,10 @@ Under `rng: "jax"` the generator is a `compat.jax_random.JaxKey` and a
 step draws as the JAX package's does: `fold_in(key, step)`, split in
 three (t, noise, dropout), t = `randint` and the simplex seeds `bits` of
 those keys, made on the host and copied to the card from pinned memory
-(no sync); a multi-step splits its key once per substep.  So, as in JAX,
+(no sync); a multi-step splits its key once per substep.  With a
+loss-weight table t is `choice` of the table; with dropout, each
+ResBlock's mask is flax's bernoulli from the dropout key folded with the
+block's path.  So, as in JAX,
 1 and 8 substeps per dispatch draw differently under a JaxKey, where a
 torch.Generator passes through the same splits and fold-in as itself
 (`streams`) and draws the same stream in the same order.
@@ -34,6 +37,7 @@ from torch.utils import checkpoint as ckpt
 
 from . import diffusion as dm
 from . import streams
+from .compat.flax_init import dropout_keys
 from .models.ema import ema_update, init_ema
 from .ops.noise import NoiseSampler
 from .parallel.mesh import Mesh, data_parallel, shard_sampler
@@ -178,7 +182,10 @@ def make_train_step(sched: Schedule, noise_sampler: NoiseSampler,
     importance-weighted.  The noise too is drawn for the global batch, and
     every rank keeps its rows, so that W ranks compute the loss of one;
     the loss returned is the global mean.  Dropout is on only when
-    `dropout` (it draws from torch's global generator).  `remat`: None,
+    `dropout`: under a JaxKey each ResBlock's mask is flax's, from the
+    step's dropout key (`compat.flax_init.dropout_keys`); under a
+    torch.Generator it is `F.dropout`'s, from torch's global generator.
+    `remat`: None,
     "dots" or "nothing" (`Remat`)."""
     if remat not in REMAT_POLICIES:
         raise ValueError(f"remat must be one of {REMAT_POLICIES}, got {remat!r}")
@@ -186,16 +193,7 @@ def make_train_step(sched: Schedule, noise_sampler: NoiseSampler,
         max_t = sched.num_timesteps
     table = dm.make_loss_weights(loss_weight, sched.num_timesteps)
     sampler = shard_sampler(noise_sampler, mesh)
-    device_table = net = net_model = None
-
-    def table_on(device: torch.device) -> torch.Tensor:
-        """The loss-weight table on `device`, copied at the first step (from
-        pinned memory to a card, which does not synchronise)."""
-        nonlocal device_table
-        if device_table is None:
-            device_table = (table.pin_memory().to(device, non_blocking=True)
-                            if device.type == "cuda" else table.to(device))
-        return device_table
+    net = net_model = None
 
     def forward_of(model: nn.Module) -> nn.Module:
         """The module the loss runs through: `model`, under `Remat` and
@@ -217,17 +215,16 @@ def make_train_step(sched: Schedule, noise_sampler: NoiseSampler,
         if mesh is not None:
             b *= mesh.world_size
             rows = mesh.rows(b)
-        if dropout:
-            streams.of(generator).torch_generator("dropout")
         # the JAX step's t, noise and dropout keys; a torch.Generator is
         # all three
-        t_key, noise_key, _ = streams.of(
+        t_key, noise_key, drop_key = streams.of(
             streams.of(generator).fold_in(state.step)).split(3)
+        if dropout:
+            state.model.dropout_streams = dropout_keys(state.model, drop_key)
         weights = None
         if table is not None:
             if t is None:
-                t, weights = dm.sample_t_with_weights(
-                    t_key, b, table_on(generator.device))
+                t, weights = dm.sample_t_with_weights(t_key, b, table)
             else:
                 p = table.to(t.device) / table.sum()
                 weights = 1.0 / (table.shape[0] * p[t])

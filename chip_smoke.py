@@ -184,7 +184,8 @@ K2B_TOL = 1e-4              # K2b vs plain: dx atol = rtol (fp32), bf16 1 ulp;
                             # dgamma, dbeta within 1e-4 of their max |value|
 K2B_HOST_SHAPE = (8, 512, 8, 8)
 SMALL_TRAIN_TOL = 1e-4      # small fp32 train step, card vs CPU
-TRAIN_CUTS = {"EPOCHS": 2, "iters_per_epoch": 4, "checkpoint_every": 2}
+TRAIN_CUTS = {"EPOCHS": 2, "iters_per_epoch": 4, "checkpoint_every": 2,
+              "T": 400}     # the VLB sweep's depth; lambda 200 still fits
 # The detection suite's shapes: K1 at methods A / A_fixedT's frequencies
 # 2^1..2^7 for 1 field (methods, validation), 4 (a volume group), 8 (a
 # train batch: the s2d64 noise is drawn at 256^2, before the
@@ -204,7 +205,8 @@ STEADY_STEPS = 10           # timed train steps at full width
 # EPOCHS, the iterations per epoch and checkpoint_every cut (and the
 # test-set suite skipped, as in the training phase).
 MRI_CONFIG = "28"
-MRI_CUTS = {"EPOCHS": 0, "iters_per_epoch": 4, "checkpoint_every": 1000}
+MRI_CUTS = {"EPOCHS": 0, "iters_per_epoch": 4, "checkpoint_every": 1000,
+            "T": 400}       # as TRAIN_CUTS
 NFBS_SHAPE = (256, 256, 192)            # NFBS T1 volumes; coronal slices on axis 1
 EDINBURGH_SHAPE = (256, 256, 160)       # slices x H x W after preprocess's rot90
 EDINBURGH_OTHERS = (210, 64, 48)        # the other 21 volumes, for inspect's draws
@@ -3111,49 +3113,296 @@ def jax_train_draws(seed, iters, substeps, batch, max_t):
     return out
 
 
-def jax_detect_seeds(seed, steps, n):
-    """The simplex seeds of every draw of the JAX detector's first volume
-    group under DDIM at eta > 0, from its code (`anoddpm_tpu/detect.py:199,
-    210`, `diffusion.py:321,345`): key(seed + 1) split once for the group,
-    the group's key split into a q-jump and a reverse key, the reverse key
-    split once per step; each draw bits(key, (n,))."""
-    from anoddpm_torch.compat import jax_random as jr
-    _, group = jr.key(seed + 1).split()
-    fwd, k = group.split()
-    keys = [fwd]
-    for _ in range(steps):
-        k, sub = k.split()
-        keys.append(sub)
-    return [jr.bits(key, (n,)) for key in keys]
+JAX_SUITE_T = 100       # the suite's schedule: methods A and B at lambda 50
+JAX_SUITE_LAMBDA = 10   # the figures' and the validation's small lambda
 
 
-class DrawRecorder:
-    """Records, while on, the t (`diffusion.sample_timesteps`) and the
-    simplex seeds (`ops.noise._seeds`) that the port's own code draws, as
-    the tensors it made (read after the run: reading them in it would
-    synchronise)."""
+class KeyRecorder:
+    """Records, while on, every draw a JaxKey's view makes (`streams.
+    _JaxView`): (method, the key's words, its arguments, its output), the
+    output read after the run (reading it in the run would synchronise)."""
+    METHODS = ("seeds", "normal", "randint", "bernoulli", "choice",
+               "permutation")
 
     def __init__(self):
-        from anoddpm_torch import diffusion
-        from anoddpm_torch.ops import noise
-        self.places = ((diffusion, "sample_timesteps", "t"),
-                       (noise, "_seeds", "seeds"))
-        self.real = [getattr(m, name) for m, name, _ in self.places]
-        self.on, self.t, self.seeds = False, [], []
-        for (module, name, kind), fn in zip(self.places, self.real):
-            setattr(module, name, self._wrap(fn, kind))
+        from anoddpm_torch import streams
+        self.view = streams._JaxView
+        self.real = {m: getattr(self.view, m) for m in self.METHODS}
+        self.on, self.draws = False, []
+        for m, fn in self.real.items():
+            setattr(self.view, m, self._wrap(m, fn))
 
-    def _wrap(self, fn, kind):
-        def wrapper(*a, **k):
-            out = fn(*a, **k)
+    def _wrap(self, method, fn):
+        def wrapper(view, *a):
+            out = fn(view, *a)
             if self.on:
-                getattr(self, kind).append(out)
+                self.draws.append((method, view.key.words, a, out))
             return out
         return wrapper
 
+    def take(self):
+        draws, self.draws = self.draws, []
+        return draws
+
     def close(self):
-        for (module, name, _), fn in zip(self.places, self.real):
-            setattr(module, name, fn)
+        for m, fn in self.real.items():
+            setattr(self.view, m, fn)
+
+
+def jax_noise_keys(kind, key):
+    """(method, key words) of one sampler call of `kind` on `key`, as the
+    JAX package's sampler keys it: randParam splits off its table row's key
+    and its seeds' key (`anoddpm_tpu/ops/noise.py:143-145`)."""
+    if kind == "simplex_randParam":
+        kp, ks = key.split()
+        return [("randint", kp.words), ("seeds", ks.words)]
+    return [("normal" if kind == "gauss" else "seeds", key.words)]
+
+
+def jax_chain_keys(key, steps, kind):
+    """A chain of `steps` draws, each step splitting one key off."""
+    out = []
+    for _ in range(steps):
+        key, sub = key.split()
+        out += jax_noise_keys(kind, sub)
+    return out
+
+
+def jax_fb_keys(key, steps, fwd="simplex", rev="simplex", gradual=False):
+    """`forward_backward` on `key` at lambda = steps (`anoddpm_tpu/
+    diffusion.py:200-212`): the q-jump's key (or the gradual chain's),
+    then the reverse chain's."""
+    key_fwd, key_rev = key.split()
+    out = (jax_chain_keys(key_fwd, steps, fwd) if gradual
+           else jax_noise_keys(fwd, key_fwd))
+    return out + jax_chain_keys(key_rev, steps, rev)
+
+
+def jax_chains(key, n, steps, **kw):
+    """n `forward_backward` chains, each on a key split off `key` (methods
+    A and B, the ROC, graph_data's chunks)."""
+    out = []
+    for _ in range(n):
+        key, sub = key.split()
+        out += jax_fb_keys(sub, steps, **kw)
+    return key, out
+
+
+def hold_draws(what, draws, want):
+    """The draws' keys equal `want`, the JAX schedule made on the host, and
+    each draw made on the card equals the same draw made on the host from
+    its key: t, table rows, coins, seeds, permutations, t by choice bit for
+    bit, and the smallest of the dropout masks.  Normals and the other
+    masks are held by their keys (threefry's words on the card against
+    the host's at full size in `jax_streams_path`)."""
+    from anoddpm_torch import streams
+    from anoddpm_torch.compat import jax_random as jr
+    got = [(m, k) for m, k, _, _ in draws]
+    require(got == want, f"{what}: {len(got)} draws, keys "
+            f"{'equal' if got[:len(want)] == want[:len(got)] else 'differ'} "
+            f"from the JAX schedule's {len(want)}")
+    masks = [d for d in draws if d[0] == "bernoulli" and len(d[2][1]) == 4]
+    small = {min(masks, key=lambda d: d[3].numel())[1]} if masks else set()
+    for m, k, a, out in draws:
+        if m == "normal" or (m == "bernoulli" and len(a[1]) == 4
+                             and k not in small):
+            continue
+        host = getattr(streams._JaxView(jr.JaxKey(k)), m)(*a)
+        require(torch.equal(out.cpu(), host),
+                f"{what}: a {m} draw differs from the host's")
+
+
+def jax_suite_path(card, args, state, sched, k2):
+    """Phase 18's suite: s2d64 at full width under `rng: "jax"` through the
+    entry points a user calls, each held to the JAX package's key schedule
+    (`hold_draws`) with exact K1 and flax-order K2 launches: one
+    `graph_data` chunk (lambda 25..100), methods A and B and A_fixedT at
+    lambda 50 (T = JAX_SUITE_T), one `anomalous_validation` slice, one
+    `roc_data` volume with the context encoder trained 4 steps, every
+    figure once at a small lambda, the noise kinds' draws, and two train
+    steps with dropout .1, loss_weight prop-t and simplex_randParam under
+    sync-debug "error"."""
+    recorder = KeyRecorder()
+    try:
+        return _jax_suite(card, args, state, sched, k2, recorder)
+    finally:
+        recorder.close()
+
+
+def _jax_suite(card, args, state, sched, k2, recorder):
+    from anoddpm_torch import baselines, checkpoint, detect, figures
+    from anoddpm_torch.compat import jax_random as jr
+    from anoddpm_torch.config import KNOWN_KEYS, defaultdict_from_json
+    from anoddpm_torch.models.unet import ResBlock
+    from anoddpm_torch.ops.noise import make_noise_sampler
+    from anoddpm_torch.schedule import schedule_from_args
+    from anoddpm_torch.train import dispatch_of, loop_stream
+    t0, total = time.time(), [0] * 5
+    em = state.ema.eval()
+    sargs = defaultdict_from_json({**args, "T": JAX_SUITE_T, "sample_distance":
+                                   2 * JAX_SUITE_LAMBDA, "noise_fn": "simplex"})
+    ssched = schedule_from_args(sargs).to(DEVICE)
+    key = jr.key
+    lam = JAX_SUITE_LAMBDA
+
+    def run(what, fn, k1, forwards, want, backwards=0, sync=False):
+        """fn() with exactly k1 K1 launches and the flax-order K2 (K2b) of
+        `forwards` (`backwards`) UNet passes, its draws held to `want`;
+        under sync-debug "error" with `sync`."""
+        recorder.take()
+        recorder.on = True
+        try:
+            with sync_debug_error() if sync else contextlib.nullcontext():
+                out = counted_launches(
+                    f"JAX suite: {what}", fn,
+                    (k1, 0, 0, k2 * forwards, 2 * k2 * backwards), total)
+        finally:
+            recorder.on = False
+        hold_draws(f"JAX suite: {what}", recorder.take(), want)
+        return out
+
+    x_np, m_np = figures._first_slice(sargs, ROOT)
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build"),
+                                     prefix="jax-suite-") as root:
+        triple = (sargs, em, ssched)
+        run("one graph chunk (lambda 25..100)",
+            lambda: detect.graph_data(triple, root_dir=root, lambdas=[25, 50, 75, 100],
+                                      max_volumes=1, lambda_batch=4, device=DEVICE),
+            101, 100, jax_chains(key(11), 1, 100)[1])
+        run("method A (7 frequencies, lambda 50)",
+            lambda: detect.detection_A(sargs, em, ssched, x_np, m_np, "s",
+                                       root_dir=root, total_avg=1),
+            7, 7 * 50, jax_chains(key(2), 7, 50, rev="gauss")[1])
+        run("method B (octave, lambda 50)",
+            lambda: detect.detection_B(sargs, em, ssched, x_np, m_np, "s",
+                                       root_dir=root, total_avg=1),
+            1, 50, jax_chains(key(3), 1, 50, rev="gauss")[1])
+        _, kf, kr = key(4).split(3)
+        run("method A at fixed lambda 50",
+            lambda: detect.detection_A_fixedT(sargs, em, ssched, x_np, m_np,
+                                              end_freq=1, t_distance=50),
+            51, 50, [("seeds", kf.words)] + jax_chain_keys(kr, 50, "simplex"))
+        _, k_t, k1, k2_, _ = key(5).split(5)
+        t = 2 + int(jr.randint(k_t, (), 0, 10))
+        run(f"one validation slice (t {t})",
+            lambda: detect.anomalous_validation(triple, root_dir=root,
+                                                max_volumes=1, max_slices=1,
+                                                detection_avg=1, device=DEVICE),
+            2 * t + 1, t + 50,
+            [("randint", k_t.words)] + jax_fb_keys(k1, t, gradual=True)
+            + jax_chains(k2_, 1, 50, rev="gauss")[1])
+        sd = em.state_dict()
+        for token, kind in (("jsuite", "simplex"), ("jsuiteg", "gauss")):
+            checkpoint.save_checkpoint(root, {**sargs, "arg_num": token,
+                                              "noise_fn": kind}, 0, sd, sd, {},
+                                       final=True)
+        os.makedirs(os.path.join(root, "configs"), exist_ok=True)
+        with open(os.path.join(root, "configs", "argsjsuite.json"), "w") as f:
+            json.dump({k: v for k, v in sargs.items()
+                       if k in KNOWN_KEYS and k != "arg_num"}, f)
+        ce_key, ce_keys = key(1), []
+        for _ in range(4):
+            ce_key, sub = ce_key.split()
+            ce_keys += [("randint", k.words) for k in sub.split()]
+        curves = run("one ROC volume (lambda 20) and the context encoder's 4 steps",
+                     lambda: detect.roc_data(["jsuite"], root_dir=root, t_distance=20,
+                                             max_volumes=1, ce_token="jsuite",
+                                             ce_train_steps=4, device=DEVICE),
+                     21, 20, jax_chains(key(13), 1, 20)[1] + ce_keys)
+        require(set(curves) == {"argsjsuite", "context-encoder"},
+                f"JAX suite: ROC curves {sorted(curves)}")
+        fargs, fem, fsched = figures._load_eval_model(root, "jsuite", device=DEVICE)
+        whole = lambda seed, kind="simplex": jax_fb_keys(key(seed), lam, kind,
+                                                         kind, gradual=True)
+        half = lambda seed, kind="simplex": jax_fb_keys(key(seed), lam, kind, kind)
+        _, kf, kr = key(4).split(3)
+        for name, fn, k1, forwards, want in (
+                ("ano", lambda: figures.ano_outputs(
+                    fargs, fem, fsched, root_dir=root, n_attempts=1,
+                    t_distance=lam), 2 * lam, lam, whole(0)),
+                ("sequence", lambda: figures.denoise_sequence(
+                    fargs, fem, fsched, root_dir=root), 2 * lam, lam, whole(0)),
+                ("masked_comparison", lambda: figures.masked_comparison(
+                    fargs, fem, fsched, root_dir=root, t_distance=lam,
+                    n_volumes=1), lam + 1, lam, half(0)),
+                ("videos", lambda: figures.diffusion_videos(
+                    fargs, fem, fsched, root_dir=root, n_volumes=1),
+                 2 * lam, lam, whole(0)),
+                ("gauss_simplex", lambda: figures.gauss_simplex_comparison(
+                    fargs, fem, fsched, root_dir=root, t_distance=lam),
+                 lam + 1, 2 * lam, half(7, "gauss") + half(7)),
+                ("varying_frequency", lambda: figures.varying_frequency(
+                    fargs, fem, fsched, root_dir=root, end_freq=1),
+                 JAX_SUITE_T + 1, JAX_SUITE_T,
+                 [("seeds", kf.words)] + jax_chain_keys(kr, JAX_SUITE_T, "simplex")),
+                ("varying_t", lambda: figures.gauss_varying_t(
+                    fargs, fem, fsched, root_dir=root, lambdas=(lam,)),
+                 0, lam, half(lam, "gauss")),
+                ("test_set", lambda: figures.test_set_outputs(
+                    "jsuite", "jsuiteg", root_dir=root, anomalous=True,
+                    t_distance=lam, n_attempts=1, device=DEVICE),
+                 2 * lam, 2 * lam, whole(0) + whole(0, "gauss"))):
+            run(f"figure {name}", fn, k1, forwards, want)
+        del fem
+        ce = baselines.train_context_encoder(fargs, root_dir=root, steps=4,
+                                             device=DEVICE)
+        run("figure ce", lambda: figures.ce_outputs(fargs, ce, root_dir=root,
+                                                    n_attempts=1, rows=1),
+            0, 0, [])
+        got = {p for p in files_under(root) if p.startswith("final-outputs")}
+        require(len(got) >= 9, f"JAX suite: figures wrote {sorted(got)}")
+
+    # the noise kinds' own draws on the card: randParam's row and seeds,
+    # random's coin, the table path's permutations, simplex_2d's seeds
+    shape, tt = (2, 1, 256, 256), torch.full((2,), 7, device=DEVICE)
+    for seed, (kind, kw, k1, want) in enumerate((
+            ("simplex_randParam", {}, 1,
+             lambda k: jax_noise_keys("simplex_randParam", k)),
+            ("random", {}, 1, lambda k: [("bernoulli", k.split()[0].words),
+                                         ("normal", k.split()[1].words),
+                                         ("seeds", k.split()[1].words)]),
+            ("simplex", {"table": True}, 0, lambda k: [("permutation", k.words)]),
+            ("simplex_2d", {}, 0, lambda k: [("seeds", k.words)]))):
+        sampler = make_noise_sampler(kind, **kw)
+        field = run(f"noise {kind}{' (table)' if kw else ''}",
+                    lambda: sampler(shape, tt, key(30 + seed, DEVICE)), k1, 0,
+                    want(key(30 + seed)))
+        require(bool(torch.isfinite(field).all()), f"JAX suite: {kind} field")
+
+    # two train steps, dropout .1, prop-t, simplex_randParam, 2 substeps
+    dargs = defaultdict_from_json({**args, "dropout": 0.1, "loss_weight": "prop-t",
+                                   "noise_fn": "simplex_randParam",
+                                   "train_substeps": 2})
+    # the model's ResBlocks at the rate a dropout config builds them with
+    blocks = [m for m in state.model.modules() if isinstance(m, ResBlock)]
+    for m in blocks:
+        m.dropout = 0.1
+    step, _ = dispatch_of(dargs, sched, make_noise_sampler("simplex_randParam"))
+    x = torch.randn((2, int(args["Batch_Size"]), 1, 256, 256),
+                    generator=torch.Generator(device=DEVICE).manual_seed(41),
+                    device=DEVICE)
+    k, want = loop_stream(dargs, "cpu"), []
+    for s in range(2):
+        k, sub = k.split()
+        t_key, noise_key, drop_key = sub.fold_in(state.step + s).split(3)
+        want += [("choice", t_key.words)] + jax_noise_keys("simplex_randParam",
+                                                           noise_key)
+        want += [("bernoulli", jr.fold_in_static(drop_key, (name, "Dropout_0", 1)).words)
+                 for name in state.model._plan
+                 if isinstance(getattr(state.model, name, None), ResBlock)]
+    loss = run("two train steps (dropout .1, prop-t, simplex_randParam)",
+               lambda: step(state, x, loop_stream(dargs, DEVICE))["loss"],
+               2, 2, want, backwards=2, sync=True)
+    require(math.isfinite(float(loss)), f"JAX suite: train loss {float(loss)}")
+    for m in blocks:
+        m.dropout = 0.0
+    log(f"JAX suite (s2d64, rng jax): graph chunk, methods A, B, A_fixedT, "
+        f"validation, ROC + CE, 9 figures, noise kinds, 2 dropout/prop-t/"
+        f"randParam train steps: every draw's key the JAX schedule's, the "
+        f"card's draws the host's; launches {total}; {time.time() - t0:.1f} s "
+        f"({card})")
+    return total
 
 
 def jax_streams_path(card):
@@ -3162,9 +3411,9 @@ def jax_streams_path(card):
     points: the trainer's dispatch (`train.dispatch_of`) on its loop stream
     (`train.loop_stream`) for epoch 0, and `detect.anomalous_metric_
     calculation` on one volume group at DDIM-20 eta 1, each under
-    sync-debug with exact launches and with the t and seeds it drew held to
-    the JAX trainer's and detector's schedules (`jax_train_draws`,
-    `jax_detect_seeds`)."""
+    sync-debug with exact launches and with the keys and draws it made held
+    to the JAX trainer's and detector's schedules (`jax_train_draws`,
+    `jax_fb_keys`, `hold_draws`); then the suite (`jax_suite_path`)."""
     from anoddpm_torch import detect, diffusion
     from anoddpm_torch.campaigns.seed_replication import (PROTOCOLS,
                                                           train_args_for)
@@ -3216,7 +3465,7 @@ def jax_streams_path(card):
     require(k2 == 71, f"JAX streams: {k2} norm+SiLU sites, s2d64 has 71")
     total = [0] * 5
     losses = []
-    recorder = DrawRecorder()
+    recorder = KeyRecorder()
     try:
         recorder.on = True
         with sync_debug_error():
@@ -3226,13 +3475,9 @@ def jax_streams_path(card):
                     lambda x=x: step(state, x, loop_stream(args, DEVICE))["loss"],
                     (substeps, 0, 0, k2 * substeps, 2 * k2 * substeps), total))
         recorder.on = False
-        drawn = list(zip(recorder.t, recorder.seeds))
-        recorder.t, recorder.seeds = [], []
-        require(len(drawn) == iters and all(
-            torch.equal(t.cpu(), w[2]) and torch.equal(s.cpu(), w[3])
-            for (t, s), w in zip(drawn, want)),
-            "JAX streams: the trainer's t or seeds differ from the JAX "
-            "trainer's schedule")
+        hold_draws("JAX streams: the trainer's t and seeds", recorder.take(),
+                   [d for t_key, noise_key, _, _ in want
+                    for d in (("randint", t_key.words), ("seeds", noise_key.words))])
         loss = float(torch.stack(losses).mean())
         require(math.isfinite(loss), f"JAX streams: epoch-0 loss {loss}")
         log(f"JAX streams: the trainer's {iters} steps drew the JAX trainer's "
@@ -3269,14 +3514,14 @@ def jax_streams_path(card):
                 recorder.on = False
         finally:
             diffusion.forward_backward_ddim = chain
-        n = recorder.seeds[0].numel() if recorder.seeds else 0
-        want_seeds = jax_detect_seeds(seed, n_steps, n)
-        require(det_total == [n_steps + 1, 0, 0, k2 * n_steps, 0]
-                and len(recorder.seeds) == len(want_seeds) and all(
-                    torch.equal(s.cpu(), w)
-                    for s, w in zip(recorder.seeds, want_seeds)),
-                "JAX streams: the detector's seeds differ from the JAX "
-                "detector's schedule")
+        drawn = recorder.take()
+        n = drawn[0][3].numel() if drawn else 0
+        # key(seed + 1) split once for the group (`anoddpm_tpu/detect.py:199,
+        # 210`), the group's chain keyed as `forward_backward_ddim` keys it
+        hold_draws("JAX streams: the detector's seeds", drawn,
+                   jax_fb_keys(jr.key(seed + 1).split()[1], n_steps))
+        require(det_total == [n_steps + 1, 0, 0, k2 * n_steps, 0],
+                f"JAX streams: detection launches {det_total}")
         require(all(math.isfinite(summary[m]) for m in ("auc", "dice")),
                 f"JAX streams: detection summary {summary}")
     finally:
@@ -3284,7 +3529,7 @@ def jax_streams_path(card):
     for i, c in enumerate(det_total):
         total[i] += c
     log(f"JAX streams: one DDIM-20 eta 1 group ({n} slices) through the "
-        f"detector drew the JAX detector's {len(want_seeds)} seed sets; "
+        f"detector drew the JAX detector's {len(drawn)} seed sets; "
         f"launches {det_total}; AUC {summary['auc']:.4f}, Dice "
         f"{summary['dice']:.4f}")
 
@@ -3305,6 +3550,8 @@ def jax_streams_path(card):
     log("JAX streams: ms per train step (s2d64, batch 8, flax order), in "
         "turns: " + "; ".join(f"{n} " + ", ".join(f"{v:.2f}" for v in vals)
                               for n, vals in ms.items()))
+    suite = jax_suite_path(card, args, state, sched, k2)
+    total = [a + b for a, b in zip(total, suite)]
     del state
     torch.cuda.empty_cache()
     return total

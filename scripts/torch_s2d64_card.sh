@@ -13,6 +13,11 @@
 #   dense    `campaigns.dense_sweep 25 22`: args256syn64s2d (seed 0)
 #            trained, then per-lambda curves at every 25th lambda on 22
 #            volumes;
+#   dense-jax  `campaigns.dense_sweep 25 22 --rng jax`: the same on the
+#            JAX package's random streams (token 256syn64s2d_jaxrng, flax
+#            norm order, 1 step a dispatch); its CSVs and walls under
+#            OUT/results/torch_dense_sweep_jaxrng/ (pair them on the CPU
+#            with `python -m anoddpm_torch.campaigns.dense_sweep --paired`);
 #   f3       `campaigns.f3_s2d64`: that seed-0 model in three
 #            seed-replication cells against the JAX package's band;
 #   seeds [--flax-order] [--jax-rng] [--together] S...  for each seed S,
@@ -135,6 +140,7 @@ for stage in "${expanded[@]}"; do
     diffuse) cmd=(python3 -m $m.diffuse_calibration --root "$root") ;;
     longer) cmd=(python3 -m $m.train_longer 1 1800 --root "$root") ;;
     dense) cmd=(python3 -m $m.dense_sweep 25 22 --root "$root") ;;
+    dense-jax) cmd=(python3 -m $m.dense_sweep 25 22 --rng jax --root "$root") ;;
     f3) cmd=(python3 -m $m.f3_s2d64 --root "$root") ;;
     seed[0-9]*)
       seed_cmd "${stage#seed}"

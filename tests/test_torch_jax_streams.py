@@ -26,7 +26,9 @@ flax's init, the trainer's key schedule and the detector's.
   step's) equals the one the JAX detector's code splits off for it, bit
   for bit, and each group's reconstruction stands against JAX's by
   `RECON_RULE` (within 1e-4 nearly everywhere; the rule says where not).
-- The noise kinds without a JAX stream in the port raise under a JaxKey.
+- The other noise kinds, the detection suite, the figures, the context
+  encoder and args_dptest: `tests/test_torch_jax_streams_suite.py` and
+  `tests/test_torch_jax_streams_figures.py`.
 - The campaigns: the JAX-stream recipe of `seed_replication` (`--rng jax`)
   and `band --jax-rng`'s paired verdicts on fixtures.
 """
@@ -310,18 +312,6 @@ def test_detection_matches_jax(protocol, noise, tmp_path, monkeypatch):
             d.max(), (d <= 1e-4).mean())
 
 
-@pytest.mark.parametrize("kind, kwargs", [
-    ("simplex_randParam", {}), ("random", {}), ("simplex_2d", {}),
-    ("simplex", {"table": True})])
-def test_unported_noise_kinds_raise_under_jax_keys(kind, kwargs):
-    sampler = tnoise.make_noise_sampler(kind, **kwargs)
-    with pytest.raises(NotImplementedError, match="rng: jax"):
-        sampler((1, 1, 8, 8), torch.zeros(1, dtype=torch.int64), jr.key(0))
-    # a torch.Generator still draws them
-    assert sampler((1, 1, 8, 8), torch.zeros(1, dtype=torch.int64),
-                   torch.Generator().manual_seed(0)).shape == (1, 1, 8, 8)
-
-
 def test_gaussian_and_simplex_draw_the_jax_samplers_keys():
     """gauss: JAX's NHWC normal, transposed; simplex: K1's seeds are
     bits(key, (B * C,)), as the JAX sampler's hash seeds."""
@@ -463,18 +453,3 @@ def test_test_set_suite_matches_jax(tmp_path):
         tol = (dict(abs=1e-4 * abs(want[k[:-4]])) if k.endswith("_std")
                else dict(rel=1e-4, abs=1e-7))
         assert got[k] == pytest.approx(v, **tol), k
-
-
-def test_entry_points_without_jax_streams_raise():
-    """The detection sweeps and figures whose JAX key schedules the port
-    does not follow refuse `rng: "jax"` rather than draw torch's streams."""
-    from anoddpm_torch import figures as tfigures
-    args = defaultdict_from_json({**DETECT, "rng": "jax"})
-    x = np.zeros((1, 32, 32, 1), np.float32)
-    for call in (lambda: tdetect.detection_A(args, None, None, x, x, "f"),
-                 lambda: tdetect.detection_B(args, None, None, x, x, "f"),
-                 lambda: tdetect.detection_A_fixedT(args, None, None, x, x),
-                 lambda: tfigures.ano_outputs(args, None, None),
-                 lambda: tfigures.gauss_varying_t(args, None, None)):
-        with pytest.raises(NotImplementedError, match="rng: jax"):
-            call()

@@ -11,7 +11,8 @@ instead of the suite.
   0) through DDP, with and without remat "dots": parameters, EMA and AdamW
   state within 1e-5 relative of one process on the whole batch.
 - `sharded_anomalous_metrics`: reconstructions within 1e-5, the same CSV;
-  `graph_data` and `roc_data` with a mesh against without one.
+  `graph_data` and `roc_data` with a mesh against without one, and
+  `graph_data` on the JAX package's keys (`rng: "jax"`) too.
 - `train.train` on args_dptest-like args (train_substeps 2) on 2 ranks,
   stopped after its epoch-2 checkpoint and resumed with RESUME_RECENT;
   the detect and train CLIs as torchrun starts them.
@@ -285,6 +286,44 @@ def test_roc_data_with_a_mesh_equals_without(detection_runs):
     assert abs(tm.auc(gf, gt) - tm.auc(wf, wt)) <= 1e-5
     for root in roots.values():
         assert (root / "metrics" / "roc-comparison.csv").exists()
+
+
+def jax_graph(mesh, root, monkeypatch=None):
+    """`graph_data` under `rng: "jax"` on the checkpoint under root: six
+    lambdas in two chunks of 4 (the second padded), key(11) split once per
+    chunk on every rank."""
+    args, em, sched = tdetect._load_eval_model(str(root), "dp", device="cpu")
+    args["rng"] = "jax"
+    recons = []
+    recording_metrics(monkeypatch, recons)
+    rows = tdetect.graph_data((args, em, sched), root_dir=str(root),
+                              lambdas=[0, 2, 5, 9, 12, 15], max_volumes=1,
+                              lambda_batch=4, mesh=mesh)
+    return dict(rows=rows, recons=recons)
+
+
+def _jax_graph_worker(mesh, root, _):
+    return jax_graph(mesh, root)
+
+
+def test_graph_data_on_jax_keys_with_a_mesh_equals_without(tmp_path,
+                                                          monkeypatch):
+    """Each rank splits the JAX key alike and draws the noise of the whole
+    lambda batch, keeping its rows: 2 gloo ranks reconstruct what one
+    process does, within 1e-5, and write the same pooled rows."""
+    roots = {k: tmp_path / f"w{k}" for k in (1, 2)}
+    for root in roots.values():
+        root.mkdir()
+        write_checkpoint(root)
+    one = jax_graph(None, roots[1], monkeypatch)
+    two = run_ranks(_jax_graph_worker, roots[2])
+    assert len(one["recons"]) == len(two["recons"]) == 2
+    for a, b in zip(two["recons"], one["recons"]):
+        np.testing.assert_allclose(a, b, atol=1e-5, rtol=0)
+    assert [r["t"] for r in two["rows"]] == [0, 2, 5, 9, 12, 15]
+    for a, b in zip(two["rows"], one["rows"]):
+        for k in ("dice", "ssim", "iou", "auc"):
+            assert abs(a[k] - b[k]) <= 1e-5, (k, a, b)
 
 
 DPTEST = {"Batch_Size": 4, "EPOCHS": 4, "iters_per_epoch": 4,
