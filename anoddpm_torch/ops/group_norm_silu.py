@@ -268,7 +268,9 @@ def _flax_site_with_stats(x, gamma, beta, bf16_path: bool, silu: bool,
     xg = xs.reshape(n, GROUPS, -1)
     mean = xg.mean(dim=-1)
     var = torch.clamp((xg * xg).mean(dim=-1) - mean * mean, min=0.0)
-    rstd = torch.rsqrt(var + eps)
+    # correctly rounded: torch's and XLA's fp32 rsqrt each err by up to ~1.5
+    # ulps, in different places
+    rstd = torch.rsqrt((var + eps).double()).float()
     cg = c // GROUPS
     bshape = (n, c) + (1,) * (x.dim() - 2)
     mul = rstd.repeat_interleave(cg, dim=1) * gamma

@@ -3305,13 +3305,22 @@ def _jax_suite(card, args, state, sched, k2, recorder):
         for _ in range(4):
             ce_key, sub = ce_key.split()
             ce_keys += [("randint", k.words) for k in sub.split()]
-        curves = run("one ROC volume (lambda 20) and the context encoder's 4 steps",
-                     lambda: detect.roc_data(["jsuite"], root_dir=root, t_distance=20,
-                                             max_volumes=1, ce_token="jsuite",
-                                             ce_train_steps=4, device=DEVICE),
-                     21, 20, jax_chains(key(13), 1, 20)[1] + ce_keys)
-        require(set(curves) == {"argsjsuite", "context-encoder"},
+        t_roc = time.time()
+        curves = run("the 3-way ROC's shape: one volume (lambda 20) of the "
+                     "simplex and the Gaussian model, the context encoder's 4 "
+                     "steps, diffuse lesions at severity 1.5",
+                     lambda: detect.roc_data(["jsuite", "jsuiteg"], root_dir=root,
+                                             t_distance=20, max_volumes=1,
+                                             ce_token="jsuite", ce_train_steps=4,
+                                             args_override={"lesion_kind": "diffuse",
+                                                            "lesion_severity": 1.5},
+                                             device=DEVICE),
+                     21, 40, jax_chains(key(13), 1, 20)[1]
+                     + jax_chains(key(13), 1, 20, fwd="gauss", rev="gauss")[1]
+                     + ce_keys)
+        require(set(curves) == {"argsjsuite", "argsjsuiteg", "context-encoder"},
                 f"JAX suite: ROC curves {sorted(curves)}")
+        print(f"JAX suite: the 3-way ROC {time.time() - t_roc:.1f} s", flush=True)
         fargs, fem, fsched = figures._load_eval_model(root, "jsuite", device=DEVICE)
         whole = lambda seed, kind="simplex": jax_fb_keys(key(seed), lam, kind,
                                                          kind, gradual=True)

@@ -18,6 +18,14 @@
 #            norm order, 1 step a dispatch); its CSVs and walls under
 #            OUT/results/torch_dense_sweep_jaxrng/ (pair them on the CPU
 #            with `python -m anoddpm_torch.campaigns.dense_sweep --paired`);
+#   roc3-jax `campaigns.roc_3way`: seed 0 of args256syn64s2d (band
+#            recipe) and args256syn64s2dg trained at once on the JAX
+#            package's random streams, two processes, then the 3-way pixel
+#            ROC with the context encoder on diffuse lesions at severity
+#            1.5; curves and walls under
+#            OUT/results/torch_roc_3way_diffuse_sev1.5_jaxrng/ (pair them on
+#            the CPU with `python -m anoddpm_torch.campaigns.roc_3way
+#            --paired`);
 #   f3       `campaigns.f3_s2d64`: that seed-0 model in three
 #            seed-replication cells against the JAX package's band;
 #   seeds [--flax-order] [--jax-rng] [--together] S...  for each seed S,
@@ -57,7 +65,7 @@ shift || true
 stages=(${*:-train diffuse longer dense f3})
 root=build/s2d64
 mkdir -p "$root/configs" "$out/results" "$out/metrics" "$out/final-outputs"
-cp configs/args256syn64s2d.json "$root/configs/"
+cp configs/args256syn64s2d.json configs/args256syn64s2dg.json "$root/configs/"
 for d in results metrics final-outputs; do
   [ -e "$root/$d" ] || ln -s "$(cd "$out" && pwd)/$d" "$root/$d"
 done
@@ -141,6 +149,7 @@ for stage in "${expanded[@]}"; do
     longer) cmd=(python3 -m $m.train_longer 1 1800 --root "$root") ;;
     dense) cmd=(python3 -m $m.dense_sweep 25 22 --root "$root") ;;
     dense-jax) cmd=(python3 -m $m.dense_sweep 25 22 --rng jax --root "$root") ;;
+    roc3-jax) cmd=(python3 -m $m.roc_3way --root "$root") ;;
     f3) cmd=(python3 -m $m.f3_s2d64 --root "$root") ;;
     seed[0-9]*)
       seed_cmd "${stage#seed}"

@@ -9,7 +9,8 @@ injected, never drawn on both sides.
   mask patched to the injected one) against optax.adam: loss and updated
   parameters within 1e-6 (where the gradient exceeds 1e-3 of its largest
   magnitude; elsewhere Adam's step is lr times a ratio set by rounding);
-- `sliding_window_error` and `sliding_window_inpaint`: within 1e-5;
+- `sliding_window_inpaint` within 1e-5; `sliding_window_error`, the square
+  of the reconstruction's error, within what the square makes of 1e-5;
 - `ce_anomalous_metrics`: the CSV's header and cells (4 digits) and the
   ROC's AUC equal to 1e-4;
 - the CLI and `train_context_encoder` run on the CPU."""
@@ -108,11 +109,27 @@ def test_random_box_mask_covers_a_square():
 
 @pytest.mark.parametrize("fn", ["sliding_window_error", "sliding_window_inpaint"])
 def test_sliding_window_matches_flax(models, fn):
+    """The inpainted image within 1e-5 (the forward's limit).  The error
+    map is v = (r - x)^2 of each pixel's reconstruction r, so the square
+    carries r's 1e-5 to 2 sqrt(v) 1e-5 + 1e-10, and each side's subtraction
+    and square round v by 2u v more (u = 2^-24): the map is held within
+    that, and within 1e-5 where 2 sqrt(v) <= 1 (v <= 1/4, the square does
+    not magnify r's error).  The map reaches 10.4 here; against a float64
+    run of the port's model, the map of JAX (jit) is off by up to 1.33e-5,
+    JAX eager 1.78e-5, the port 0.88e-5."""
     fmodel, params, port = models
     x = images(seed=2)
     want = np.asarray(getattr(jce, fn)(fmodel, params, jnp.asarray(x), 4))
     got = nhwc(getattr(tce, fn)(port, nchw(x), 4))
-    np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+    if fn == "sliding_window_inpaint":
+        np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+        return
+    v = np.abs(want.astype(np.float64))
+    d = np.abs(got.astype(np.float64) - want)
+    bound = 1e-5 * (2 * np.sqrt(v) + 1e-5) + 4 * 2.0 ** -24 * v
+    assert (d <= np.maximum(bound, 1e-5)).all(), (d - bound).max()
+    well = v <= 0.25
+    assert well.mean() > 0.3 and (d[well] <= 1e-5).all(), d[well].max()
 
 
 def test_ce_metrics_csv_and_roc_match_jax(models, tmp_path):

@@ -269,6 +269,12 @@ def _expected_detect_keys(protocol, t_distance):
     return keys
 
 
+# eta * (1 +- C_RESPONSE u): sigma^2 moved by 2 C_RESPONSE u = 20u, the two
+# sides' c apart by at most 18u (1 - a_prev + sigma^2), tests/test_torch_ddim.py
+C_RESPONSE = 10
+WELL = 1e-5             # a pixel c's rounding moves by at most this is well conditioned
+
+
 @pytest.mark.parametrize("noise", ["gauss", "simplex"])
 @pytest.mark.parametrize("protocol", [
     {"sampler": "ddpm"},
@@ -276,6 +282,25 @@ def _expected_detect_keys(protocol, t_distance):
     {"sampler": "ddim", "ddim_steps": 4, "ddim_eta": 1.0, "recon_repeats": 2}],
     ids=["ddpm", "ddim_eta1", "ddim_x2"])
 def test_detection_matches_jax(protocol, noise, tmp_path, monkeypatch):
+    """Two volume groups of `anomalous_metric_calculation` on both sides:
+    the keys of every draw, and each group's reconstruction by RECON_RULE.
+
+    DDIM at eta > 0 with Gaussian noise (ddim_eta1, ddim_x2): the first
+    step of each chain (t 19 -> 14, 19 -> 13) has c = 1 - a_prev - sigma^2
+    of 3.1e-5 and 1.9e-5 against 1 - a_prev + sigma^2 of 1.71 and 1.59, so
+    the two sides' roundings of sigma^2 (18u (1 - a_prev + sigma^2) apart
+    at most, u = 2^-24; `test_ddim_step_matches_jax`) move sqrt(c) eps_hat
+    by up to ~1e-4, and the chain and the UNet carry it on.  That response
+    is measured per pixel on the port itself: B = the larger change of its
+    reconstruction when eta becomes eta (1 +- 10u) (sigma^2 moved by 20u).
+    Against a float64 run of the port's model on normals computed in
+    float64 from the same uniforms, JAX (jit) is off by up to 1.27e-4 and
+    5.04e-4 (ddim_eta1's groups; 99.90% and 99.83% within 1e-4) and
+    1.53e-4 (ddim_x2's; 99.49%, 99.68%), JAX eager by 1.19e-4, 1.45e-4,
+    1.79e-4, 1.84e-4, the port by 3.1e-5, 1.04e-4, 2.0e-5, 4.9e-5
+    (99.98-100%).  So there RECON_RULE's share is counted
+    within 1e-4 + B, its 1e-3 maximum stays, and the pixels with B <= 1e-5
+    are held to RECON_RULE itself."""
     fmodel, params, port = flax_and_port(CONFIGS["s2d1"])
     recons = {"jax": [], "port": []}
     for name, module in (("jax", jdetect), ("port", tdetect)):
@@ -297,19 +322,32 @@ def test_detection_matches_jax(protocol, noise, tmp_path, monkeypatch):
         args=defaultdict_from_json({**DETECT, **protocol, "noise_fn": noise}), root_dir=str(tmp_path),
         em=EvalModel(fmodel, params),
         sched=make_schedule(get_beta_schedule(20, "cosine")))
-    tdetect.anomalous_metric_calculation(
-        args=defaultdict_from_json({**DETECT, **protocol, "noise_fn": noise,
-                                    "rng": "jax"}),
-        root_dir=str(tmp_path), em=port,
-        sched=ts.make_schedule(ts.get_beta_schedule(20, "cosine")),
-        device="cpu")
+
+    def port_run(**over):
+        tdetect.anomalous_metric_calculation(
+            args=defaultdict_from_json({**DETECT, **protocol, "noise_fn": noise,
+                                        "rng": "jax", **over}),
+            root_dir=str(tmp_path), em=port,
+            sched=ts.make_schedule(ts.get_beta_schedule(20, "cosine")),
+            device="cpu")
+    port_run()
     assert len(recons["jax"]) == len(recons["port"]) == 2
     assert drawn == _expected_detect_keys(protocol, 20)
     share, worst = RECON_RULE[noise]
-    for want, got in zip(recons["jax"], recons["port"]):
+    eta = float(protocol.get("ddim_eta") or 0)
+    response = [np.zeros_like(r) for r in recons["port"]]
+    if noise == "gauss" and eta > 0:
+        for sign in (1, -1):
+            port_run(ddim_eta=eta * (1 + sign * C_RESPONSE * 2.0 ** -24))
+        moved = recons["port"][2:]
+        response = [np.maximum(np.abs(moved[i] - r), np.abs(moved[i + 2] - r))
+                    for i, r in enumerate(recons["port"][:2])]
+    for want, got, b in zip(recons["jax"], recons["port"], response):
         d = np.abs(got - want)
-        assert (d <= 1e-4).mean() >= share and d.max() <= worst, (
-            d.max(), (d <= 1e-4).mean())
+        well = b <= WELL
+        assert (d <= 1e-4 + b).mean() >= share and d.max() <= worst, (
+            d.max(), (d <= 1e-4 + b).mean())
+        assert (d[well] <= 1e-4).mean() >= share, (d[well] <= 1e-4).mean()
 
 
 def test_gaussian_and_simplex_draw_the_jax_samplers_keys():

@@ -42,6 +42,7 @@ def test_import_loads_no_jax():
             "anoddpm_torch.campaigns.train_longer, "
             "anoddpm_torch.campaigns.dense_sweep, "
             "anoddpm_torch.campaigns.f3_s2d64, anoddpm_torch.bench, "
+            "anoddpm_torch.campaigns.roc_3way, "
             "anoddpm_torch.campaigns.chain_flops, "
             "anoddpm_torch.campaigns.mfu_push, "
             "anoddpm_torch.campaigns.bf16_norm_ab, "
@@ -68,6 +69,7 @@ def test_import_loads_no_jax():
     "anoddpm_torch.campaigns.diffuse_calibration",
     "anoddpm_torch.campaigns.train_longer", "anoddpm_torch.campaigns.dense_sweep",
     "anoddpm_torch.campaigns.f3_s2d64", "anoddpm_torch.bench",
+    "anoddpm_torch.campaigns.roc_3way",
     "anoddpm_torch.campaigns.chain_flops", "anoddpm_torch.campaigns.mfu_push",
     "anoddpm_torch.campaigns.bf16_norm_ab",
     "anoddpm_torch.campaigns.substep_probe",
