@@ -23,6 +23,7 @@ F3_FLAX_ORDER = "results/torch_f3_flax_order_two_sample.json"
 F3_JAX_RNG_PAIRED = "results/torch_f3_jax_rng_paired.json"
 ROC_3WAY_JAX_RNG = "results/torch_roc_3way_diffuse_sev1.5_jaxrng/run.json"
 ROC_3WAY_JAX_RNG_PAIRED = "results/torch_roc_3way_jaxrng_paired.json"
+ROC_3WAY_CE_SPREAD = "results/torch_roc_3way_diffuse_sev1.5_jaxrng/ce_spread.json"
 
 
 def load_results(root_dir: str, name: str) -> Dict[str, Any]:

@@ -27,8 +27,11 @@ params-final records its epochs is not trained again.
 
 ``--paired`` holds the port's curves against the JAX file by
 `paired_verdict` (the rule of PERF.md section 2) and writes
-``results/torch_roc_3way_jaxrng_paired.json``; ``--replot DIR`` draws the
-PNG from DIR's CSV on a machine with matplotlib.
+``results/torch_roc_3way_jaxrng_paired.json`` (``--port-dir`` and
+``--out`` pair another run's curves); ``--replot DIR`` draws the PNG from
+DIR's CSV on a machine with matplotlib.  ``--ce-spread N`` runs the
+context encoder's stage alone N times under each of `CE_SETTINGS` and
+writes its AUCs to ``ce_spread.json`` there.
 """
 
 from __future__ import annotations
@@ -51,7 +54,8 @@ from .. import metrics as M
 from ..config import load_args
 from ..device import DeviceLike
 from ..train import train
-from ._results import ROC_3WAY_JAX_RNG, ROC_3WAY_JAX_RNG_PAIRED, load_results, save_results
+from ._results import (ROC_3WAY_CE_SPREAD, ROC_3WAY_JAX_RNG,
+                       ROC_3WAY_JAX_RNG_PAIRED, load_results, save_results)
 from ._stages import train_gate
 from .seed_replication import NORM_ORDERS, train_args_for
 
@@ -260,21 +264,76 @@ def paired_verdict(port: Mapping[str, float], jax: Mapping[str, float]
     return out
 
 
-def paired_main(root_dir: str = ".") -> Dict[str, Any]:
-    """The port's curves under OUT_DIR against JAX_CSV; writes
-    ROC_3WAY_JAX_RNG_PAIRED."""
+def paired_main(root_dir: str = ".", port_dir: str = OUT_DIR,
+                out: str = ROC_3WAY_JAX_RNG_PAIRED) -> Dict[str, Any]:
+    """The port's curves under `port_dir` against JAX_CSV (both relative
+    to `root_dir`); writes `out` there."""
+    port_csv = os.path.join(port_dir, CSV_NAME)
     sides = {"jax": curve_stats(read_curves(os.path.join(root_dir, JAX_CSV))),
-             "port": curve_stats(read_curves(os.path.join(root_dir, OUT_DIR,
-                                                          CSV_NAME)))}
+             "port": curve_stats(read_curves(os.path.join(root_dir, port_csv)))}
     auc = {side: {k: sides[side][CURVES[k][i]][0] for k in CURVES}
            for i, side in enumerate(("jax", "port"))}
     tpr = {side: {k: sides[side][CURVES[k][i]][1] for k in CURVES}
            for i, side in enumerate(("jax", "port"))}
-    out = paired_verdict(auc["port"], auc["jax"])
-    out.update(auc=auc, tpr_at_fpr=tpr, jax_csv=JAX_CSV,
-               port_csv=os.path.join(OUT_DIR, CSV_NAME))
-    save_results(root_dir, ROC_3WAY_JAX_RNG_PAIRED, out)
-    return out
+    res = paired_verdict(auc["port"], auc["jax"])
+    res.update(auc=auc, tpr_at_fpr=tpr, jax_csv=JAX_CSV, port_csv=port_csv)
+    save_results(root_dir, out, res)
+    return res
+
+
+# --- the context encoder's run-to-run spread on the card -------------------
+
+# cuDNN's deterministic algorithms, and TF32 in convolutions and matmuls;
+# None leaves the process's setting as it is (PyTorch's default: cuDNN
+# free to pick nondeterministic algorithms, TF32 in cuDNN's convolutions)
+CE_SETTINGS = {"default": (None, None), "deterministic": (True, None),
+               "deterministic_fp32": (True, False)}
+
+
+def ce_auc(root_dir: str, device: DeviceLike = None) -> float:
+    """The context encoder's stage of the 3-way ROC alone: trained and
+    scored as `roc_argv`'s CE= and LESION= have `detect.roc_data` do it."""
+    from .. import detect
+    kind, _, sev = LESION.partition(":")
+    curves = detect.roc_data(
+        [], root_dir=root_dir, ce_token=CE_TOKEN, device=device,
+        args_override={"lesion_kind": kind, "lesion_severity": float(sev)})
+    return M.auc(*curves["context-encoder"])
+
+
+def ce_spread(root_dir: str = ".", repeats: int = 3,
+              device: str = "cuda") -> Dict[str, Any]:
+    """`ce_auc` `repeats` times in a row under each of CE_SETTINGS, on the
+    same keys and data: each setting's AUCs, walls, spread (max - min) and
+    flags, written to ROC_3WAY_CE_SPREAD."""
+    import torch
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    write_ce_config(root_dir)
+    saved = (cudnn.deterministic, cudnn.allow_tf32, matmul.allow_tf32)
+    res: Dict[str, Any] = {}
+    try:
+        for name, (deterministic, tf32) in CE_SETTINGS.items():
+            cudnn.deterministic, cudnn.allow_tf32, matmul.allow_tf32 = saved
+            if deterministic is not None:
+                cudnn.deterministic = deterministic
+            if tf32 is not None:
+                cudnn.allow_tf32 = matmul.allow_tf32 = tf32
+            runs = res[name] = {"flags": {
+                "cudnn_deterministic": cudnn.deterministic,
+                "cudnn_allow_tf32": cudnn.allow_tf32,
+                "matmul_allow_tf32": matmul.allow_tf32}, "auc": [], "seconds": []}
+            for _ in range(repeats):
+                t0 = time.time()
+                runs["auc"].append(ce_auc(root_dir, device))
+                runs["seconds"].append(time.time() - t0)
+                print(f"CE spread {name}: AUC {runs['auc'][-1]!r} in "
+                      f"{runs['seconds'][-1]:.1f} s", flush=True)
+            runs["spread"] = max(runs["auc"]) - min(runs["auc"])
+            save_results(root_dir, ROC_3WAY_CE_SPREAD, res)
+    finally:
+        cudnn.deterministic, cudnn.allow_tf32, matmul.allow_tf32 = saved
+    print(json.dumps(res, indent=1))
+    return res
 
 
 def replot(out_dir: str) -> str:
@@ -294,15 +353,24 @@ def main(argv=None):
     p.add_argument("--paired", action="store_true",
                    help="hold the port's curves against the JAX package's "
                         "(no model, no card)")
+    p.add_argument("--port-dir", default=OUT_DIR,
+                   help="with --paired: the port's curves' directory")
+    p.add_argument("--out", default=ROC_3WAY_JAX_RNG_PAIRED,
+                   help="with --paired: the file to write")
+    p.add_argument("--ce-spread", metavar="N", type=int, default=None,
+                   help="the context encoder's stage alone, N times under "
+                        "each of CE_SETTINGS")
     p.add_argument("--replot", metavar="DIR", default=None,
                    help="draw the ROC figure from the CSV under DIR")
     ns = p.parse_args(sys.argv[1:] if argv is None else argv)
     if ns.replot is not None:
         return replot(ns.replot)
     if ns.paired:
-        out = paired_main(ns.root)
+        out = paired_main(ns.root, ns.port_dir, ns.out)
         print(json.dumps(out, indent=1))
         return out
+    if ns.ce_spread is not None:
+        return ce_spread(ns.root, ns.ce_spread, ns.device)
     if ns.train is not None:
         return train_one(ns.train, ns.root, ns.device)
     return run(ns.root, ns.device)

@@ -178,11 +178,11 @@ def check_ce():
 def check_graph():
     import test_torch_parallel as tp
     with tempfile.TemporaryDirectory() as root:
-        roots = {k: os.path.join(root, f"w{k}") for k in (1, 2)}
+        roots = {k: os.path.join(root, f"w{k}") for k in (1, 2, 3)}
         for r in roots.values():
             os.makedirs(r)
             tp.write_checkpoint(r)
-        control, _ = tp.per_rank_control(roots[1])
+        control = tp.staged_ranks(roots[3])["recons"]
         one = tp.jax_graph(None, roots[1])
         two = tp.run_ranks(tp._jax_graph_worker, roots[2])
     for i, (a, b, c) in enumerate(zip(two["recons"], one["recons"], control)):

@@ -26,6 +26,11 @@
 #            OUT/results/torch_roc_3way_diffuse_sev1.5_jaxrng/ (pair them on
 #            the CPU with `python -m anoddpm_torch.campaigns.roc_3way
 #            --paired`);
+#   roc3-ce-spread  the context encoder's stage of that ROC alone, 3 times
+#            under each of cuDNN's default, deterministic, and deterministic
+#            without TF32 (`roc_3way --ce-spread 3`; no diffusion model);
+#            AUCs and walls in
+#            OUT/results/torch_roc_3way_diffuse_sev1.5_jaxrng/ce_spread.json;
 #   f3       `campaigns.f3_s2d64`: that seed-0 model in three
 #            seed-replication cells against the JAX package's band;
 #   seeds [--flax-order] [--jax-rng] [--together] S...  for each seed S,
@@ -150,6 +155,7 @@ for stage in "${expanded[@]}"; do
     dense) cmd=(python3 -m $m.dense_sweep 25 22 --root "$root") ;;
     dense-jax) cmd=(python3 -m $m.dense_sweep 25 22 --rng jax --root "$root") ;;
     roc3-jax) cmd=(python3 -m $m.roc_3way --root "$root") ;;
+    roc3-ce-spread) cmd=(python3 -m $m.roc_3way --ce-spread 3 --root "$root") ;;
     f3) cmd=(python3 -m $m.f3_s2d64 --root "$root") ;;
     seed[0-9]*)
       seed_cmd "${stage#seed}"

@@ -22,7 +22,7 @@ from anoddpm_tpu.ops import pallas_norm
 from anoddpm_torch.compat.flax_params import unet_state_dict_from_flax
 from anoddpm_torch.models import unet as port_unet
 from anoddpm_torch.ops.group_norm_silu import VMEM_SAMPLE_BYTES, eligible
-from torch_parity import flax_site_bound, nchw, nhwc
+from torch_parity import nchw, nhwc
 
 DTYPES = {"float32": (torch.float32, jnp.float32),
           "bfloat16": (torch.bfloat16, jnp.bfloat16)}
@@ -83,13 +83,13 @@ def test_site_matches_jax_composition(shape, dtype, bf16_path):
     one bf16 ulp of dx's largest magnitude (bf16_path=False sums three fp32
     cotangents before its one rounding, in another order than JAX, and
     where they nearly cancel the rounding of a small sum moves).  fp32:
-    XLA's exp and rsqrt on the CPU are not torch's, so the output is held
-    per element to `flax_site_bound` (its derivation there), and to 4 fp32
-    ulps of its largest magnitude where that bound is smaller; against a
-    float64 evaluation from the same inputs the output of JAX eager is off
-    by 2.56, 2.07, 2.65 ulps of the largest at the three shapes, JAX jit by
-    2.83, 2.07, 2.65, the port by 2.43, 2.07, 2.37 (by 3.18, 2.07, 3.49
-    while its rsqrt was torch's).  dx within 1e-5 of its largest magnitude
+    XLA's exp and rsqrt on the CPU are not torch's (they differ in the last
+    bit on 10% and 35% of inputs), so the output is held to 4 fp32 ulps of
+    its largest magnitude; against a float64 evaluation from the same
+    inputs the output of JAX eager is off by 2.56, 2.07, 2.65 ulps of the
+    largest at the three shapes, JAX jit by 2.83, 2.07, 2.65, the port by
+    2.43, 2.07, 2.37 (by 3.18, 2.07, 3.49 while its rsqrt was torch's;
+    `scripts/parity_oracles.py site`).  dx within 1e-5 of its largest magnitude
     (2e-7 here).  dgamma and dbeta sum over N H W in another order: 1e-5 of
     their largest magnitude."""
     tdtype, jdtype = DTYPES[dtype]
@@ -102,11 +102,8 @@ def test_site_matches_jax_composition(shape, dtype, bf16_path):
         np.testing.assert_allclose(got[1], want[1], rtol=0,
                                    atol=np.abs(want[1]).max() / 2 ** 7)
     else:
-        d = np.abs(got[0] - want[0])
-        bound = flax_site_bound(x, gamma, beta)
-        tight = 4 * np.spacing(np.abs(want[0]).max())
-        assert (d <= bound).all(), (d / bound).max()
-        assert (d[bound <= tight] <= tight).all()
+        np.testing.assert_allclose(got[0], want[0], rtol=0, atol=4 * np.spacing(
+            np.abs(want[0]).max()))
         np.testing.assert_allclose(got[1], want[1], rtol=0,
                                    atol=1e-5 * np.abs(want[1]).max())
     for k in (2, 3):

@@ -18,6 +18,7 @@ instead of the suite.
   stopped after its epoch-2 checkpoint and resumed with RESUME_RECENT;
   the detect and train CLIs as torchrun starts them.
 """
+import dataclasses
 import datetime
 import os
 import pickle
@@ -36,7 +37,8 @@ from anoddpm_torch import training as ttr
 from anoddpm_torch.config import defaultdict_from_json, load_args
 from anoddpm_torch.models.unet import UNet
 from anoddpm_torch.ops.noise import make_noise_sampler
-from anoddpm_torch.parallel.mesh import init_mesh, close_mesh, shard_sampler
+from anoddpm_torch.parallel.mesh import (Mesh, close_mesh, init_mesh,
+                                         shard_sampler)
 
 WORLD = 2
 TIMEOUT_S = 240      # per spawn: the join deadline and the group's timeout
@@ -307,80 +309,73 @@ def _jax_graph_worker(mesh, root, _):
     return jax_graph(mesh, root)
 
 
-def per_rank_control(root, lambdas=(0, 2, 5, 9, 12, 15), lambda_batch=4):
-    """`jax_graph`'s chunks computed in this process as the 2 ranks compute
-    them: key(11) split once per chunk, each rank's rows of the lambda
-    batch at its own batch (lambda_batch / 2) on one thread, with the
-    noise of the whole batch (`shard_sampler` on a Mesh of that rank); the
-    rows of a chunk concatenated in rank order.  Returns (the chunks'
-    reconstructions as rank 0 records them, their pooled rows)."""
-    from anoddpm_torch import diffusion as dmod
-    from anoddpm_torch import streams
-    from anoddpm_torch.data.datasets import anomalous_dataset_from_args
-    from anoddpm_torch.data.pipeline import to_nchw, to_nhwc
-    from anoddpm_torch.ops.noise import sampler_from_args
-    from anoddpm_torch.parallel.mesh import Mesh
-    args, em, sched = tdetect._load_eval_model(str(root), "dp", device="cpu")
-    args["rng"] = "jax"
-    sample = anomalous_dataset_from_args(str(root), args)[0]
-    x0, mask = (np.asarray(sample[k][1:2]) for k in ("image", "mask"))
-    lambdas = list(lambdas)
-    meshes = [Mesh(r, WORLD, torch.device("cpu"), "gloo") for r in range(WORLD)]
-    generator = streams.make(args, 11, "cpu")
-    recons, rows = [], []
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)            # as `_entry` runs each rank
+@dataclasses.dataclass(frozen=True)
+class StagedMesh(Mesh):
+    """A rank of the mesh run in this process, one rank after the other,
+    rank 0 last: `gather_rows` keeps each rank's rows in `staged`, and
+    rank 0's returns the kept rows of every rank in rank order."""
+    staged: dict = dataclasses.field(default_factory=dict, compare=False)
+
+    def gather_rows(self, x):
+        self.staged.setdefault(self.rank, []).append(x.detach().cpu())
+        if not self.is_main:
+            return x
+        return torch.cat([self.staged[r].pop(0) for r in range(self.world_size)])
+
+
+def staged_ranks(root):
+    """`jax_graph` on each rank of a 2-rank mesh in turn, in this process,
+    on one thread as `_entry` runs a rank: the port's own sharded path
+    (the key split per chunk, the padding, `mesh.rows`, `shard_sampler`),
+    each rank's rows computed at its batch shape, without gloo.  Returns
+    rank 0's result."""
+    staged, threads = {}, torch.get_num_threads()
+    torch.set_num_threads(1)
     try:
-        for begin in range(0, len(lambdas), lambda_batch):
-            chunk = lambdas[begin:begin + lambda_batch]
-            padded = chunk + chunk[:1] * (lambda_batch - len(chunk))
-            generator, sub = streams.of(generator).split()
-            parts = []
-            for mesh in meshes:
-                lamv = torch.tensor(padded[mesh.rows(lambda_batch)])
-                x_rep = to_nchw(x0).repeat(lambda_batch // WORLD, 1, 1, 1)
-                with torch.inference_mode():
-                    parts.append(dmod.forward_backward_batched_lambda(
-                        em, sched, x_rep, lamv, max(lambdas), sub,
-                        noise_sampler=shard_sampler(sampler_from_args(args),
-                                                    mesh)))
-            recon = to_nhwc(torch.cat(parts))[:len(chunk)]
-            recons.append(recon)
-            m = tdetect.M.batched_anomaly_metrics(
-                np.broadcast_to(x0, recon.shape), recon,
-                np.broadcast_to(mask, recon.shape))
-            rows += [{"t": t, **{k: float(m[k][j]) for k in
-                                 ("dice", "ssim", "iou", "auc")}}
-                     for j, t in enumerate(chunk)]
+        for rank in reversed(range(WORLD)):
+            with pytest.MonkeyPatch.context() as mp_:
+                out = jax_graph(StagedMesh(rank, WORLD, torch.device("cpu"),
+                                           "gloo", staged), root, mp_)
     finally:
         torch.set_num_threads(threads)
-    return recons, rows
+    return out
 
 
 def test_graph_data_on_jax_keys_with_a_mesh_equals_without(tmp_path,
                                                           monkeypatch):
     """Each rank splits the JAX key alike and draws the noise of the whole
-    lambda batch, keeping its rows.  The control (`per_rank_control`)
-    computes those rows in this process at each rank's batch shape: the
-    2 gloo ranks must reconstruct exactly what it does and write its
-    pooled rows, and lie no farther from one process on the whole lambda
-    batch than the control does, pixel by pixel.  (The change of batch
-    shape alone moves a reconstruction by up to 1.05e-5 here, more than the
-    former 1e-5 limit, while both ranks equal the control bit for bit:
-    `scripts/parity_oracles.py graph`.)"""
-    roots = {k: tmp_path / f"w{k}" for k in (1, 2)}
+    lambda batch, keeping its rows.  The control (`staged_ranks`) runs the
+    same ranks of the port's own sharded path in this process: the 2 gloo
+    ranks must reconstruct exactly what it does and write its pooled rows.
+
+    The control is then held to one process on the whole lambda batch.
+    Each rank's batch of 2 (not 4) changes the summation order of the CPU
+    convolutions, so the two are two fp32 evaluations of one 15-step chain:
+    they are held by the terms of RECON_RULE's Gaussian rule
+    (`tests/test_torch_jax_streams.py`), 99.9% of pixels within 1e-4 and
+    all within 1e-3 (not its simplex terms, which allow for two codes'
+    lattice flips: here one code draws the same fields on both sides).  The change of batch shape alone moved pixels by up
+    to 1.05e-5 on one host and 8.2e-6 on another, while the ranks equalled
+    the control bit for bit (`scripts/parity_oracles.py graph`); a wrong
+    noise row, key split or padding moves pixels by O(0.1).  The pooled
+    rows keep their former limit, 1e-5 (6e-8 measured)."""
+    roots = {k: tmp_path / f"w{k}" for k in ("one", "two", "control")}
     for root in roots.values():
         root.mkdir()
         write_checkpoint(root)
-    control, control_rows = per_rank_control(roots[1])
-    one = jax_graph(None, roots[1], monkeypatch)
-    two = run_ranks(_jax_graph_worker, roots[2])
-    assert len(one["recons"]) == len(two["recons"]) == len(control) == 2
-    for a, b, c in zip(two["recons"], one["recons"], control):
+    control = staged_ranks(roots["control"])
+    one = jax_graph(None, roots["one"], monkeypatch)
+    two = run_ranks(_jax_graph_worker, roots["two"])
+    assert len(one["recons"]) == len(two["recons"]) == len(control["recons"]) == 2
+    for a, b, c in zip(two["recons"], one["recons"], control["recons"]):
         np.testing.assert_array_equal(a, c)
-        assert (np.abs(a - b) <= np.abs(c - b)).all()
+        d = np.abs(c - b)
+        assert np.mean(d <= 1e-4) >= 0.999 and d.max() <= 1e-3, d.max()
     assert [r["t"] for r in two["rows"]] == [0, 2, 5, 9, 12, 15]
-    assert two["rows"] == control_rows
+    assert two["rows"] == control["rows"]
+    for a, b in zip(control["rows"], one["rows"]):
+        for k in ("dice", "ssim", "iou", "auc"):
+            assert abs(a[k] - b[k]) <= 1e-5, (k, a, b)
 
 
 DPTEST = {"Batch_Size": 4, "EPOCHS": 4, "iters_per_epoch": 4,

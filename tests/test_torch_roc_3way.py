@@ -11,7 +11,8 @@
   rule), and the AUCs within the bounds of the suite's ROC test.  Both
   CLIs run with the context encoder cut to 3 steps (`roc_data` wrapped);
   everything else is the CLI's.
-- The two training recipes, and `--paired` on fixture CSVs.
+- The two training recipes, `--paired` on fixture CSVs, and `--ce-spread`'s
+  settings.
 """
 import functools
 import json
@@ -132,21 +133,56 @@ def test_cli_roc_matches_jax(models, drawn, monkeypatch, tmp_path):
                                         else 1e-2), (label, auc)
 
 
-def test_paired_main_on_fixture_csvs(tmp_path):
+@pytest.mark.parametrize("port_dir", [None, roc_3way.OUT_DIR + "/run_b"])
+def test_paired_main_on_fixture_csvs(tmp_path, port_dir):
     """--paired with the JAX file's curves relabelled as the port's: every
-    delta 0, "closed: the ROC pairs", the TPRs of both sides equal."""
+    delta 0, "closed: the ROC pairs", the TPRs of both sides equal; the
+    record names the CSV it read (--port-dir) and is written to --out."""
     src = os.path.join(REPO, roc_3way.JAX_CSV)
-    os.makedirs(tmp_path / "results" / "torch_roc_3way_diffuse_sev1.5_jaxrng")
+    read_dir = port_dir or roc_3way.OUT_DIR
+    os.makedirs(tmp_path / read_dir)
+    os.makedirs(tmp_path / "results", exist_ok=True)
     shutil.copy(src, tmp_path / roc_3way.JAX_CSV)
     with open(src) as f:
         text = f.read()
     for jax_label, port_label in roc_3way.CURVES.values():
         text = text.replace(f"{jax_label}_", f"{port_label}_")
-    with open(tmp_path / roc_3way.OUT_DIR / roc_3way.CSV_NAME, "w") as f:
+    with open(tmp_path / read_dir / roc_3way.CSV_NAME, "w") as f:
         f.write(text)
-    out = roc_3way.main(["--paired", "--root", str(tmp_path)])
+    argv, written = ["--paired", "--root", str(tmp_path)], roc_3way.ROC_3WAY_JAX_RNG_PAIRED
+    if port_dir is not None:
+        written = os.path.join(port_dir, "paired.json")
+        argv += ["--port-dir", port_dir, "--out", written]
+    out = roc_3way.main(argv)
     assert out["verdict"] == "closed: the ROC pairs"
     assert all(d == 0 for d in out["delta"].values())
     assert out["tpr_at_fpr"]["port"] == out["tpr_at_fpr"]["jax"]
-    with open(tmp_path / roc_3way.ROC_3WAY_JAX_RNG_PAIRED) as f:
-        assert json.load(f)["verdict"] == out["verdict"]
+    with open(tmp_path / written) as f:
+        record = json.load(f)
+    assert record["verdict"] == out["verdict"]
+    assert record["port_csv"] == os.path.join(read_dir, roc_3way.CSV_NAME)
+
+
+def test_ce_spread_sets_and_restores_the_flags(tmp_path, monkeypatch):
+    """--ce-spread runs the CE's stage `repeats` times under each setting
+    with cuDNN's flags as `CE_SETTINGS` name them, records them, and leaves
+    the process's flags as it found them (the stage itself is stubbed)."""
+    import torch
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    before = (cudnn.deterministic, cudnn.allow_tf32, matmul.allow_tf32)
+    seen = []
+    monkeypatch.setattr(roc_3way, "ce_auc", lambda root, device: seen.append(
+        (cudnn.deterministic, cudnn.allow_tf32, matmul.allow_tf32)) or 0.7 + len(seen) / 100)
+    os.makedirs(tmp_path / "configs")
+    shutil.copy(os.path.join(REPO, "configs", f"args{roc_3way.CE_CONFIG}.json"),
+                tmp_path / "configs")
+    res = roc_3way.main(["--ce-spread", "2", "--root", str(tmp_path), "--device", "cpu"])
+    assert (cudnn.deterministic, cudnn.allow_tf32, matmul.allow_tf32) == before
+    assert seen == [before] * 2 + [(True,) + before[1:]] * 2 + [(True, False, False)] * 2
+    assert list(res) == list(roc_3way.CE_SETTINGS)
+    for i, name in enumerate(res):
+        assert res[name]["auc"] == pytest.approx([0.71 + 0.02 * i, 0.72 + 0.02 * i])
+        assert res[name]["spread"] == pytest.approx(0.01)
+        assert res[name]["flags"]["cudnn_deterministic"] == seen[2 * i][0]
+    with open(tmp_path / roc_3way.ROC_3WAY_CE_SPREAD) as f:
+        assert json.load(f) == json.loads(json.dumps(res))

@@ -91,36 +91,3 @@ def per_sample_bank_samplers(shape_nhwc, seed=2, steps=T):
         return tbank[t, torch.arange(shape[0])].to(generator.device)
 
     return jax_sampler, torch_sampler
-
-
-U32 = 2.0 ** -24        # fp32's unit roundoff
-
-
-def flax_site_bound(x, gamma, beta):
-    """Per element of an fp32 flax site (`nn.silu(GroupNorm32(x))`, NHWC x
-    and its (C,) gamma and beta): how far two fp32 evaluations of it from
-    these inputs may lie apart, to first order, from float64 values.
-
-    One side's roundings, u = 2^-24: the mean mu (u |mu|, carried into x -
-    mu), x - mu (u |x - mu|), var = E[x^2] - mu^2 (u (E[x^2] + mu^2),
-    half of it relative in rstd), rsqrt (<= 1.63 ulps in XLA over 2e5
-    inputs, 3.3u), rstd gamma and the product with x - mu (u each) give
-    z = (x - mu) rstd gamma within u ((6.3 + kappa / 2) |z| + |mu| rstd
-    |gamma|), kappa = (E[x^2] + mu^2) / var; + beta rounds h by u |h|.
-    SiLU carries dh by |silu'| <= 1.1, and the logistic (<= 1.91 ulps in
-    XLA and torch, 3.9u relative) and the product add 4.9u |out|.  The
-    two sides: twice that."""
-    x = np.asarray(x, np.float64)
-    n, hgt, wid, c = x.shape
-    xg = x.reshape(n, hgt * wid, 32, c // 32)
-    mu = xg.mean(axis=(1, 3), keepdims=True)
-    ex2 = (xg ** 2).mean(axis=(1, 3), keepdims=True)
-    var = ex2 - mu ** 2
-    rstd = 1 / np.sqrt(var + 1e-5)
-    group = lambda v: np.broadcast_to(v, xg.shape).reshape(x.shape)
-    z = ((xg - mu) * rstd).reshape(x.shape) * gamma
-    h = z + beta
-    out = h / (1 + np.exp(-h))
-    dz = U32 * ((6.3 + 0.5 * group((ex2 + mu ** 2) / var)) * np.abs(z)
-                + group(np.abs(mu) * rstd) * np.abs(gamma))
-    return 2 * (1.1 * (dz + U32 * np.abs(h)) + 4.9 * U32 * np.abs(out))
