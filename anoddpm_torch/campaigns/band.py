@@ -22,12 +22,15 @@ seeds (i) and against the port's default-order seeds of DIR's
 ``results/torch_seed_replication.json`` (ii), both by the rule above, and
 writes both with the verdict to ``results/torch_f3_flax_order_two_sample.json``.
 
-F3 paired (`f3_paired_verdict`): ``... band --jax-rng`` pairs each seed S
-the port trained on the JAX package's own draws (`rng: "jax"`, DIR's
-``results/torch_f3_jax_rng_seeds*.json``) with JAX seed S, for the seeds
-the epoch-0 gate marks paired (``results/torch_jax_streams_epoch0.json``,
-`scripts/torch_jax_streams_epoch0.py`), and writes the paired tests, P1 and
-the verdict to ``results/torch_f3_jax_rng_paired.json``.
+F3 paired (`f3_paired_verdict`): ``... band --jax-rng [--config C]`` pairs
+each seed S the port trained on the JAX package's own draws (`rng: "jax"`,
+DIR's files of C, `seed_replication.JAX_RNG_FILES`) with JAX seed S, in
+C's cells that both files hold, for the seeds the config's epoch-0 gate
+marks paired (`EPOCH0_GATES`, `scripts/torch_jax_streams_epoch0.py`), and
+writes the paired tests, the verdict and, where F3's cell is one of C's,
+P1 to C's file of `PAIRED_FILES` (256syn64s2d, the default:
+``results/torch_f3_jax_rng_paired.json``; 256syn128:
+``results/torch_jax_rng_256syn128_paired.json``).
 
 The files are read as data; nothing of the JAX side is imported.  Under
 the port's default `rng: "torch"` the two packages draw from different
@@ -49,7 +52,7 @@ from scipy import stats
 
 from ._results import (F3_FLAX_ORDER, F3_JAX_RNG_PAIRED, F3_TWO_SAMPLE,
                        SEED_REPLICATION, save_results)
-from .seed_replication import (FLAX_ORDER_RESULTS, JAX_RNG_RESULTS, MODELS,
+from .seed_replication import (FLAX_ORDER_RESULTS, JAX_RNG_FILES, MODELS,
                                OWN_FILE_RESULTS, seed_entries)
 
 K = 2.0
@@ -273,8 +276,13 @@ def flax_order_main(root: str, jax_path: str) -> Dict[str, object]:
 
 
 # the epoch-0 gate that decides, before the JAX-stream seeds are scored,
-# which of them pair with their JAX twin
+# which of them pair with their JAX twin, per config
 EPOCH0_GATE = "results/torch_jax_streams_epoch0.json"
+EPOCH0_GATES = {"256syn64s2d": EPOCH0_GATE,
+                "256syn128": "results/torch_jax_streams_epoch0_256syn128.json"}
+# the paired comparison's file, per config
+PAIRED_FILES = {"256syn64s2d": F3_JAX_RNG_PAIRED,
+                "256syn128": "results/torch_jax_rng_256syn128_paired.json"}
 # the fewest paired seeds the paired rule reads
 MIN_PAIRED = 4
 
@@ -315,53 +323,61 @@ def paired_tests(port: Mapping, jax: Mapping, cells: Sequence[str],
 
 
 def f3_paired_verdict(res: Mapping) -> str:
-    """F3's paired verdict by the rule of PERF.md section 2: "open: the
-    streams could not be reproduced" under MIN_PAIRED seeds; "open: the
-    pairs do not hold" where the median over the pairs of mean|d| /
-    sigma_JAX exceeds 1; else "a fault in the port" (naming what) where P1
-    has p < ALPHA or a paired t-test rejects under Holm; else "closed: the
+    """The paired verdict by the rule of PERF.md section 2: "open: the
+    streams could not be reproduced" under MIN_PAIRED seeds that the gate
+    marks and both files hold, in every cell; "open: the pairs do not hold"
+    where the median over the pairs of mean|d| / sigma_JAX exceeds 1; else
+    "a fault in the port" (naming what) where P1 (if `res` has one) has
+    p < ALPHA or a paired t-test rejects under Holm; else "closed: the
     draws"."""
-    if len(res["seeds"]) < MIN_PAIRED:
+    paired = min((len(row["seeds"]) for row in res["cells"].values()),
+                 default=0)
+    if paired < MIN_PAIRED:
         return "open: the streams could not be reproduced"
     if res["median_mean_abs_over_sigma"] > 1.0:
         return "open: the pairs do not hold"
     faults = ([f"P1 {res['p1']['named']} F p {res['p1']['f_p']:.4f}"]
-              if res["p1"]["f_p"] < ALPHA else [])
+              if "p1" in res and res["p1"]["f_p"] < ALPHA else [])
     faults += [f"paired t {k}" for k, v in res["holm"].items() if v["rejected"]]
     return "a fault in the port: " + ", ".join(faults) if faults else \
         "closed: the draws"
 
 
-def jax_rng_main(root: str, jax_path: str) -> Dict[str, object]:
-    """F3 paired: the JAX-stream seeds under `root` against their JAX twins,
-    written to `F3_JAX_RNG_PAIRED` under `root`."""
-    paths = sorted(glob.glob(os.path.join(root, JAX_RNG_RESULTS.format("*"))))
+def jax_rng_main(root: str, jax_path: str,
+                 config: str = "256syn64s2d") -> Dict[str, object]:
+    """The JAX-stream seeds of `config` under `root` against their JAX
+    twins (F3 paired at 256syn64s2d), written to the config's file of
+    `PAIRED_FILES` under `root`."""
+    pattern = JAX_RNG_FILES[config].format("*")
+    paths = sorted(glob.glob(os.path.join(root, pattern)))
     if not paths:
-        raise FileNotFoundError(f"no {JAX_RNG_RESULTS.format('*')} under {root}")
+        raise FileNotFoundError(f"no {pattern} under {root}")
     port = merged_seed_files(paths)
     with open(jax_path) as f:
         jax = json.load(f)
-    seeds = gate_seeds(os.path.join(root, EPOCH0_GATE))
-    cells = [c for c in MODELS["256syn64s2d"]
+    seeds = gate_seeds(os.path.join(root, EPOCH0_GATES[config]))
+    cells = [c for c in MODELS[config]
              if seed_entries(jax, c) and seed_entries(port, c)]
     table = paired_tests(port, jax, cells, seeds)
     family = {f"{c}/{m}": table[c][m]["paired_t_p"]
               for c in table for m in TWO_SAMPLE_METRICS}
-    cell, metric = F3_CELL
-    ours, theirs = seed_entries(port, cell), seed_entries(jax, cell)
-    p1 = compare([ours[s][metric] for s in seeds if s in ours],
-                 [theirs[s][metric] for s in sorted(theirs)],
-                 ("port_jax_rng", "jax"))
     ratios = [table[c][m]["mean_abs_over_sigma"] for c in table
               for m in TWO_SAMPLE_METRICS]
     out = {"files": [os.path.relpath(p, root) for p in paths],
            "seeds": seeds, "alpha": ALPHA, "cells": table,
-           "holm": holm(family) if family else {},
-           "p1": {"named": "/".join(F3_CELL), **p1},
-           "median_mean_abs_over_sigma": float(np.median(ratios)) if ratios
-           else float("inf")}
+           "holm": holm(family) if family else {}}
+    cell, metric = F3_CELL
+    if cell in MODELS[config]:
+        # F3's P1 reads only the config that holds its cell
+        ours, theirs = seed_entries(port, cell), seed_entries(jax, cell)
+        p1 = compare([ours[s][metric] for s in seeds if s in ours],
+                     [theirs[s][metric] for s in sorted(theirs)],
+                     ("port_jax_rng", "jax"))
+        out["p1"] = {"named": "/".join(F3_CELL), **p1}
+    out["median_mean_abs_over_sigma"] = (float(np.median(ratios)) if ratios
+                                         else float("inf"))
     out["verdict"] = f3_paired_verdict(out)
-    save_results(root, F3_JAX_RNG_PAIRED, out)
+    save_results(root, PAIRED_FILES[config], out)
     for c, row in table.items():
         for m in TWO_SAMPLE_METRICS:
             r = row[m]
@@ -370,10 +386,13 @@ def jax_rng_main(root: str, jax_path: str) -> Dict[str, object]:
                   f"{r['paired_t_p']:.4f} (Holm "
                   f"{out['holm'][f'{c}/{m}']['adjusted_p']:.4f}), "
                   f"mean|d|/sigma_JAX {r['mean_abs_over_sigma']:.2f}")
-    print(f"P1 {out['p1']['named']}: F {p1['f']:.2f}, p {p1['f_p']:.4f}; "
-          f"median mean|d|/sigma_JAX {out['median_mean_abs_over_sigma']:.3f}; "
-          f"paired seeds {seeds}")
-    print(f"F3 paired: {out['verdict']}")
+    if "p1" in out:
+        print(f"P1 {out['p1']['named']}: F {out['p1']['f']:.2f}, p "
+              f"{out['p1']['f_p']:.4f}")
+    print(f"median mean|d|/sigma_JAX {out['median_mean_abs_over_sigma']:.3f}; "
+          f"gated seeds {seeds}, paired in each cell: "
+          f"{ {c: row['seeds'] for c, row in table.items()} }")
+    print(f"{config} paired: {out['verdict']}")
     return out
 
 
@@ -406,9 +425,12 @@ def main(argv=None):
     p.add_argument("--jax-rng", action="store_true",
                    help="F3 paired: the seeds trained on the JAX package's "
                         "draws against their JAX twins")
+    p.add_argument("--config", choices=sorted(PAIRED_FILES),
+                   default="256syn64s2d",
+                   help="with --jax-rng: the config whose seeds pair")
     ns = p.parse_args(sys.argv[1:] if argv is None else argv)
     if ns.jax_rng:
-        return jax_rng_main(ns.root, ns.jax)
+        return jax_rng_main(ns.root, ns.jax, ns.config)
     if ns.flax_order:
         return flax_order_main(ns.root, ns.jax)
     paths = port_seed_files(ns.root)

@@ -31,7 +31,9 @@ params-final records its epochs is not trained again.
 ``--out`` pair another run's curves); ``--replot DIR`` draws the PNG from
 DIR's CSV on a machine with matplotlib.  ``--ce-spread N`` runs the
 context encoder's stage alone N times under each of `CE_SETTINGS` and
-writes its AUCs to ``ce_spread.json`` there.
+writes its AUCs to ``ce_spread.json`` there; ``--ce-mean N`` runs it N
+times under cuDNN's default alone and holds the mean of the N AUCs to the
+JAX file's CE AUC by `ce_mean_verdict` (``ce_default10.json``).
 """
 
 from __future__ import annotations
@@ -54,9 +56,10 @@ from .. import metrics as M
 from ..config import load_args
 from ..device import DeviceLike
 from ..train import train
-from ._results import (ROC_3WAY_CE_SPREAD, ROC_3WAY_JAX_RNG,
+from ._results import (ROC_3WAY_CE_MEAN, ROC_3WAY_CE_SPREAD, ROC_3WAY_JAX_RNG,
                        ROC_3WAY_JAX_RNG_PAIRED, load_results, save_results)
 from ._stages import train_gate
+from .band import ROOT
 from .seed_replication import NORM_ORDERS, train_args_for
 
 SIMPLEX, GAUSS = "256syn64s2d", "256syn64s2dg"
@@ -301,18 +304,20 @@ def ce_auc(root_dir: str, device: DeviceLike = None) -> float:
     return M.auc(*curves["context-encoder"])
 
 
-def ce_spread(root_dir: str = ".", repeats: int = 3,
-              device: str = "cuda") -> Dict[str, Any]:
-    """`ce_auc` `repeats` times in a row under each of CE_SETTINGS, on the
-    same keys and data: each setting's AUCs, walls, spread (max - min) and
-    flags, written to ROC_3WAY_CE_SPREAD."""
+def ce_spread(root_dir: str = ".", repeats: int = 3, device: str = "cuda",
+              settings=tuple(CE_SETTINGS),
+              out: str = ROC_3WAY_CE_SPREAD) -> Dict[str, Any]:
+    """`ce_auc` `repeats` times in a row under each of `settings` (names of
+    CE_SETTINGS), on the same keys and data: each setting's AUCs, walls,
+    spread (max - min) and flags, written to `out` under `root_dir`."""
     import torch
     cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
     write_ce_config(root_dir)
     saved = (cudnn.deterministic, cudnn.allow_tf32, matmul.allow_tf32)
     res: Dict[str, Any] = {}
     try:
-        for name, (deterministic, tf32) in CE_SETTINGS.items():
+        for name in settings:
+            deterministic, tf32 = CE_SETTINGS[name]
             cudnn.deterministic, cudnn.allow_tf32, matmul.allow_tf32 = saved
             if deterministic is not None:
                 cudnn.deterministic = deterministic
@@ -329,10 +334,50 @@ def ce_spread(root_dir: str = ".", repeats: int = 3,
                 print(f"CE spread {name}: AUC {runs['auc'][-1]!r} in "
                       f"{runs['seconds'][-1]:.1f} s", flush=True)
             runs["spread"] = max(runs["auc"]) - min(runs["auc"])
-            save_results(root_dir, ROC_3WAY_CE_SPREAD, res)
+            save_results(root_dir, out, res)
     finally:
         cudnn.deterministic, cudnn.allow_tf32, matmul.allow_tf32 = saved
     print(json.dumps(res, indent=1))
+    return res
+
+
+# the rule of PERF.md section 2 for the CE's mean over fresh default runs:
+# the one-sample t-test against the JAX file's CE AUC at CE_MEAN_ALPHA, and
+# the mean's distance from it
+CE_MEAN_ALPHA = 0.05
+CE_MEAN_ABS = 0.005
+
+
+def jax_ce_auc(root_dir: str = ROOT) -> float:
+    """The context encoder's AUC in the JAX file (trapezoid of its curve)."""
+    curves = read_curves(os.path.join(root_dir, JAX_CSV))
+    return M.auc(*curves[CURVES["ce"][0]])
+
+
+def ce_mean_verdict(aucs, jax_auc: float) -> Dict[str, Any]:
+    """"closed: the CE pairs in the mean" where the one-sample t-test of
+    `aucs` against `jax_auc` does not reject at CE_MEAN_ALPHA and |mean -
+    jax_auc| <= CE_MEAN_ABS; else "open", with the numbers."""
+    from scipy import stats
+    a = np.asarray(aucs, np.float64)
+    test = stats.ttest_1samp(a, jax_auc)
+    mean = float(a.mean())
+    closed = test.pvalue >= CE_MEAN_ALPHA and abs(mean - jax_auc) <= CE_MEAN_ABS
+    return {"n": int(a.size), "mean": mean, "std": float(a.std(ddof=1)),
+            "jax_auc": float(jax_auc), "mean_minus_jax": mean - jax_auc,
+            "t": float(test.statistic), "p": float(test.pvalue),
+            "verdict": ("closed: the CE pairs in the mean" if closed
+                        else "open: the CE's mean does not pair")}
+
+
+def ce_mean(root_dir: str = ".", repeats: int = 10,
+            device: str = "cuda") -> Dict[str, Any]:
+    """`ce_auc` `repeats` times under cuDNN's default alone, held to the
+    checkout's JAX file by `ce_mean_verdict`; written to ROC_3WAY_CE_MEAN."""
+    res = ce_spread(root_dir, repeats, device, ("default",), ROC_3WAY_CE_MEAN)
+    res["vs_jax"] = ce_mean_verdict(res["default"]["auc"], jax_ce_auc())
+    save_results(root_dir, ROC_3WAY_CE_MEAN, res)
+    print(json.dumps(res["vs_jax"], indent=1))
     return res
 
 
@@ -360,6 +405,9 @@ def main(argv=None):
     p.add_argument("--ce-spread", metavar="N", type=int, default=None,
                    help="the context encoder's stage alone, N times under "
                         "each of CE_SETTINGS")
+    p.add_argument("--ce-mean", metavar="N", type=int, default=None,
+                   help="the context encoder's stage alone, N times under "
+                        "cuDNN's default, its mean held to the JAX file's")
     p.add_argument("--replot", metavar="DIR", default=None,
                    help="draw the ROC figure from the CSV under DIR")
     ns = p.parse_args(sys.argv[1:] if argv is None else argv)
@@ -371,6 +419,8 @@ def main(argv=None):
         return out
     if ns.ce_spread is not None:
         return ce_spread(ns.root, ns.ce_spread, ns.device)
+    if ns.ce_mean is not None:
+        return ce_mean(ns.root, ns.ce_mean, ns.device)
     if ns.train is not None:
         return train_one(ns.train, ns.root, ns.device)
     return run(ns.root, ns.device)

@@ -1,7 +1,7 @@
 """Seed-replicated quality evidence:
 ``python -m anoddpm_torch.campaigns.seed_replication [seeds...]
 [--skip=a,b] [--norm-order kernel|flax] [--rng torch|jax] [--own-file]
-[--root DIR]`` (seeds 0 1 2 3 4 by default).
+[--skip-test-eval] [--root DIR]`` (seeds 0 1 2 3 4 by default).
 
 Counterpart of `scripts/seed_replication.py`.  Each model cell trains
 fresh seeds end to end through `train.train` (8 steps per dispatch, token
@@ -26,9 +26,12 @@ the same in the default order: the entries go to
 flax's init, the trainer's and the detector's threefry keys) in the flax
 order, the JAX five's numerics (`NORM_ORDERS["jax_rng"]`; the kernel order
 is refused), under the tokens ``{config}_s{seed}_jaxrng``, and writes
-their entries to ``results/torch_f3_jax_rng_seeds{seeds}.json``, one file
-per process: seed S of the port is then seed S of the JAX package
-(`campaigns.band --jax-rng` pairs them).
+their entries to a file per process and config (`JAX_RNG_FILES`:
+``results/torch_f3_jax_rng_seeds{seeds}.json`` for 256syn64s2d,
+``results/torch_jax_rng_256syn128_seeds{seeds}.json`` for 256syn128), so a
+run on the JAX streams keeps the cells of one config (`--skip=paper128`,
+or `--skip=s2d64,_diffuse`): seed S of the port is then seed S of the JAX
+package (`campaigns.band --jax-rng [--config C]` pairs them).
 """
 
 from __future__ import annotations
@@ -106,17 +109,20 @@ NORM_ORDERS = {"kernel": ({}, ""),
 NORM_ORDERS["jax_rng"] = ({**NORM_ORDERS["flax"][0], "rng": "jax"}, "_jaxrng")
 FLAX_ORDER_RESULTS = "results/torch_f3_flax_order_seeds{}.json"
 JAX_RNG_RESULTS = "results/torch_f3_jax_rng_seeds{}.json"
+JAX_RNG_FILES = {"256syn64s2d": JAX_RNG_RESULTS,
+                 "256syn128": "results/torch_jax_rng_256syn128_seeds{}.json"}
 OWN_FILE_RESULTS = "results/torch_seed_replication_seeds{}.json"
 
 
 def results_name(seeds: Sequence[int], norm_order: str = "kernel",
-                 own_file: bool = False) -> str:
+                 own_file: bool = False, config: str = "256syn64s2d") -> str:
     """The results file of a run of `seeds` in `norm_order`: the shared
     file of the default order, unless `own_file` asks for one per process
-    (always so in the flax order and on the JAX streams)."""
+    (always so in the flax order and on the JAX streams, where each config
+    has its own)."""
     tag = "".join(str(s) for s in seeds)
     if norm_order == "jax_rng":
-        return JAX_RNG_RESULTS.format(tag)
+        return JAX_RNG_FILES[config].format(tag)
     if norm_order != "kernel":
         return FLAX_ORDER_RESULTS.format(tag)
     return OWN_FILE_RESULTS.format(tag) if own_file else SEED_REPLICATION
@@ -138,10 +144,14 @@ def train_args_for(config: str, seed: int, root_dir: str = ".",
 
 
 def ensure_trained(config: str, seed: int, root_dir: str = ".",
-                   device: DeviceLike = None, norm_order: str = "kernel") -> str:
-    """Train {config}_s{seed} (in `norm_order`) unless its params-final
-    exists; its token."""
+                   device: DeviceLike = None, norm_order: str = "kernel",
+                   skip_test_eval: bool = False) -> str:
+    """Train {config}_s{seed} (in `norm_order`; without the test-set suite
+    after it if `skip_test_eval`) unless its params-final exists; its
+    token."""
     args = train_args_for(config, seed, root_dir, norm_order)
+    if skip_test_eval:
+        args["skip_test_eval"] = True
     token = args["arg_num"]
     final = os.path.join(root_dir, "model", f"diff-params-ARGS={token}",
                          "params-final", "payload.msgpack")
@@ -205,18 +215,25 @@ def aggregate(res, seeds=None, cells=None) -> None:
 
 def run(seeds: Sequence[int] = (0, 1, 2, 3, 4), skip: Sequence[str] = (),
         root_dir: str = ".", device: DeviceLike = None,
-        norm_order: str = "kernel", own_file: bool = False):
+        norm_order: str = "kernel", own_file: bool = False,
+        skip_test_eval: bool = False):
     """Train every (config, seed) of MODELS that has a cell left after
-    `skip`, in `norm_order`, evaluate every missing entry, aggregate;
-    returns the results dict (`results_name` says which file)."""
+    `skip`, in `norm_order` (`skip_test_eval`: without the test-set suite,
+    which reads the trained weights and changes none), evaluate every
+    missing entry, aggregate; returns the results dict (`results_name`
+    says which file)."""
     device = resolve_device(device)
-    name = results_name(seeds, norm_order, own_file)
+    configs = [config for config in MODELS if kept_cells(config, skip)]
+    if norm_order == "jax_rng" and len(configs) != 1:
+        raise ValueError("a run on the JAX streams keeps the cells of one "
+                         f"config (--skip), not {configs}")
+    name = results_name(seeds, norm_order, own_file, *configs[:1])
     res = load_results(root_dir, name)
     # training first: the expensive assets exist even if evaluation stops
+    extra = {"skip_test_eval": True} if skip_test_eval else {}
     tokens = {(config, seed): ensure_trained(config, seed, root_dir, device,
-                                             norm_order)
-              for config in MODELS if kept_cells(config, skip)
-              for seed in seeds}
+                                             norm_order, **extra)
+              for config in configs for seed in seeds}
     for _, config, cell, seed in work_list(res, seeds, skip):
         key = f"{cell}/seed{seed}"
         eval_args, em, sched = _load_eval_model(root_dir, tokens[(config, seed)],
@@ -247,6 +264,8 @@ def main(argv=None, device: DeviceLike = None):
                         "in the flax order")
     p.add_argument("--own-file", action="store_true",
                    help="write this process's entries to a file of its own")
+    p.add_argument("--skip-test-eval", action="store_true",
+                   help="train without the test-set suite after training")
     p.add_argument("--root", default=".")
     ns = p.parse_args(sys.argv[1:] if argv is None else argv)
     norm_order = ns.norm_order or "kernel"
@@ -257,7 +276,8 @@ def main(argv=None, device: DeviceLike = None):
         norm_order = "jax_rng"
     return run(ns.seeds or [0, 1, 2, 3, 4],
                [s for s in ns.skip.split(",") if s], ns.root, device=device,
-               norm_order=norm_order, own_file=ns.own_file)
+               norm_order=norm_order, own_file=ns.own_file,
+               skip_test_eval=ns.skip_test_eval)
 
 
 if __name__ == "__main__":

@@ -3422,7 +3422,8 @@ def jax_streams_path(card):
     calculation` on one volume group at DDIM-20 eta 1, each under
     sync-debug with exact launches and with the keys and draws it made held
     to the JAX trainer's and detector's schedules (`jax_train_draws`,
-    `jax_fb_keys`, `hold_draws`); then the suite (`jax_suite_path`)."""
+    `jax_fb_keys`, `hold_draws`); then the suite (`jax_suite_path`), and
+    the same at args256syn128's full width (`jax_paper_path`)."""
     from anoddpm_torch import detect, diffusion
     from anoddpm_torch.campaigns.seed_replication import (PROTOCOLS,
                                                           train_args_for)
@@ -3563,7 +3564,135 @@ def jax_streams_path(card):
     total = [a + b for a, b in zip(total, suite)]
     del state
     torch.cuda.empty_cache()
-    return total
+    paper = jax_paper_path(card)
+    return [a + b for a, b in zip(total, paper)]
+
+
+JAX_PAPER_CONFIG = "256syn128"
+JAX_PAPER_SITES = 85
+# seed 0's epoch-0 loss on the TPU (the mean of its 16 steps)
+JAX_PAPER_LOG_LOSS = ("results/seed_replication.log:3", 0.12589)
+
+
+def jax_paper_path(card):
+    """Phase 18's paper part: args256syn128 at full width on the JAX
+    package's streams in the band recipe (flax order, 8 substeps, batch 8),
+    through the s2d64 part's entry points: the first dispatch of seed 0's
+    epoch 0 (`train.dispatch_of` on `train.loop_stream`) under sync-debug
+    with exact launches, its t and seeds held to `jax_train_draws`; then
+    one volume group of `paper128_ddpm200` (DDPM, lambda 200) through
+    `detect.anomalous_metric_calculation` under sync-debug, with 201 K1 and
+    200 x 85 flax-order K2, its keys held to `jax_fb_keys` and its draws
+    by `hold_draws`.  Each wall on a line of its own."""
+    from anoddpm_torch import detect, diffusion
+    from anoddpm_torch.campaigns.seed_replication import (PROTOCOLS,
+                                                          train_args_for)
+    from anoddpm_torch.compat import jax_random as jr
+    from anoddpm_torch.data.datasets import dataset_from_args
+    from anoddpm_torch.data.pipeline import batch_iterator, prefetch_to_device
+    from anoddpm_torch.models.unet import NormSiLU
+    from anoddpm_torch.ops.noise import sampler_from_args
+    from anoddpm_torch.schedule import schedule_from_args
+    from anoddpm_torch.train import dispatch_of, loop_stream, new_train_state
+    args = train_args_for(JAX_PAPER_CONFIG, 0, ROOT, "jax_rng")
+    b, substeps = int(args["Batch_Size"]), int(args["train_substeps"])
+    seed = int(args["seed"])
+    sched = schedule_from_args(args).to(DEVICE)
+    sampler = sampler_from_args(args)
+    step, max_t = dispatch_of(args, sched, sampler)
+    want = jax_train_draws(seed, substeps, substeps, b, max_t)
+    loader = prefetch_to_device(batch_iterator(
+        dataset_from_args(ROOT, args, train=True), b, shuffle=True), DEVICE,
+        substeps=substeps)
+    try:
+        x = next(loader)["image"]
+    finally:
+        loader.close()
+    # the lazy set-up at these shapes on a throwaway state (torch's init:
+    # flax's, drawn on the host, is the slow part)
+    warm = new_train_state({**args, "rng": "torch"}, torch.device(DEVICE))
+    dispatch_of(args, sched, sampler)[0](warm, x, loop_stream(args, DEVICE))
+    del warm
+    torch.cuda.synchronize()
+    t0 = time.time()
+    state = new_train_state(args, torch.device(DEVICE))
+    log(f"JAX streams, paper: flax's init of seed 0 on the host and its copy "
+        f"to the card {time.time() - t0:.1f} s")
+    k2 = sum(isinstance(m, NormSiLU) for m in state.model.modules())
+    require(k2 == JAX_PAPER_SITES, f"JAX streams, paper: {k2} norm+SiLU "
+            f"sites, args256syn128 has {JAX_PAPER_SITES}")
+    total, det_total = [0] * 5, [0] * 5
+    recorder = KeyRecorder()
+    try:
+        recorder.on = True
+        t0 = time.time()
+        with sync_debug_error():
+            loss = counted_launches(
+                "JAX streams, paper: a dispatch of 8 steps",
+                lambda: step(state, x, loop_stream(args, DEVICE))["loss"],
+                (substeps, 0, 0, k2 * substeps, 2 * k2 * substeps), total)
+        loss = float(loss)
+        log(f"JAX streams, paper: the first dispatch ({substeps} steps at "
+            f"batch {b}) {time.time() - t0:.2f} s")
+        recorder.on = False
+        hold_draws("JAX streams, paper: the trainer's t and seeds",
+                   recorder.take(),
+                   [d for t_key, noise_key, _, _ in want
+                    for d in (("randint", t_key.words), ("seeds", noise_key.words))])
+        require(math.isfinite(loss), f"JAX streams, paper: loss {loss}")
+        where, log_loss = JAX_PAPER_LOG_LOSS
+        log(f"JAX streams, paper: seed 0's first dispatch drew the JAX "
+            f"trainer's t and seeds; its loss (the mean of its {substeps} "
+            f"steps) {loss:.5f} beside the TPU log's epoch-0 loss {log_loss} "
+            f"({where}, the mean of 16 steps; "
+            f"{100 * (loss / log_loss - 1):+.2f}%, not held; {card}); "
+            f"launches {total}, {k2} sites")
+
+        # one volume group of the paper's protocol through the detector
+        chain = diffusion.forward_backward
+        steps = 200
+
+        def counted_chain(*a, **k):
+            with sync_debug_error():
+                return counted_launches(
+                    "JAX streams, paper: a DDPM-200 detection group",
+                    lambda: chain(*a, **k), (steps + 1, 0, 0, k2 * steps, 0),
+                    det_total)
+        diffusion.forward_backward = counted_chain
+        os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+        try:
+            with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build"),
+                                             prefix="jax-paper-") as root:
+                recorder.on = True
+                det_args = copy.copy(args)
+                det_args.update(PROTOCOLS["paper128_ddpm200"])
+                t0 = time.time()
+                summary = detect.anomalous_metric_calculation(
+                    args=det_args, root_dir=root, em=state.ema.eval(),
+                    sched=sched, max_volumes=1, device=DEVICE)
+                det_s = time.time() - t0
+                recorder.on = False
+        finally:
+            diffusion.forward_backward = chain
+        drawn = recorder.take()
+        n = drawn[0][3].numel() if drawn else 0
+        log(f"JAX streams, paper: one DDPM-200 volume group ({n} slices) "
+            f"through the detector {det_s:.2f} s")
+        hold_draws("JAX streams, paper: the detector's seeds", drawn,
+                   jax_fb_keys(jr.key(seed + 1).split()[1], steps))
+        require(det_total == [steps + 1, 0, 0, k2 * steps, 0],
+                f"JAX streams, paper: detection launches {det_total}")
+        require(all(math.isfinite(summary[m]) for m in ("auc", "dice")),
+                f"JAX streams, paper: detection summary {summary}")
+    finally:
+        recorder.close()
+    log(f"JAX streams, paper: the DDPM-200 group drew the JAX detector's "
+        f"{len(drawn)} seed sets; launches {det_total}; AUC "
+        f"{summary['auc']:.4f}, Dice {summary['dice']:.4f} (one dispatch's "
+        f"weights: not a quality figure)")
+    del state
+    torch.cuda.empty_cache()
+    return [a + b for a, b in zip(total, det_total)]
 
 
 def main():

@@ -31,6 +31,9 @@
 #            without TF32 (`roc_3way --ce-spread 3`; no diffusion model);
 #            AUCs and walls in
 #            OUT/results/torch_roc_3way_diffuse_sev1.5_jaxrng/ce_spread.json;
+#   roc3-ce-mean  the context encoder's stage alone, 10 fresh runs under
+#            cuDNN's default (`roc_3way --ce-mean 10`), their mean held to
+#            the JAX file's CE AUC; in .../ce_default10.json;
 #   f3       `campaigns.f3_s2d64`: that seed-0 model in three
 #            seed-replication cells against the JAX package's band;
 #   seeds [--flax-order] [--jax-rng] [--together] S...  for each seed S,
@@ -50,11 +53,18 @@
 #            processes at once on the one card and waits for all of them,
 #            each writing its entries to a file of its own
 #            (`--own-file`: results/torch_seed_replication_seeds<S>.json
-#            in the default order).
+#            in the default order); --paper128 (with --jax-rng) trains
+#            args256syn128 in place of args256syn64s2d
+#            (`--skip=s2d64,_diffuse --skip-test-eval`: the paper's band
+#            recipe, 600 epochs at 8 substeps, without the test-set suite,
+#            which changes no weight, scored in paper128_ddpm200 alone;
+#            tokens 256syn128_s<S>_jaxrng, entries in
+#            results/torch_jax_rng_256syn128_seeds<S>.json, logs
+#            jaxrng128_seed<S>.log).
 # diffuse and longer need train's model, f3 needs dense's; nothing under
 # build/ outlives a remote call, so a call runs train..longer, dense..f3 or
-# seeds with the seeds it trains (two one after another fit in a call of
-# 3,600 s).
+# seeds with the seeds it trains (two s2d64 seeds one after another fit in
+# a call of 3,600 s).
 #
 # Everything runs under build/s2d64, whose results/, metrics/ and
 # final-outputs/ are links into OUT (build/s2d64-out by default), so that
@@ -70,7 +80,8 @@ shift || true
 stages=(${*:-train diffuse longer dense f3})
 root=build/s2d64
 mkdir -p "$root/configs" "$out/results" "$out/metrics" "$out/final-outputs"
-cp configs/args256syn64s2d.json configs/args256syn64s2dg.json "$root/configs/"
+cp configs/args256syn64s2d.json configs/args256syn64s2dg.json \
+  configs/args256syn128.json "$root/configs/"
 for d in results metrics final-outputs; do
   [ -e "$root/$d" ] || ln -s "$(cd "$out" && pwd)/$d" "$root/$d"
 done
@@ -90,6 +101,8 @@ expanded=()
 in_seeds=0
 seed_order=()
 seed_rng=()
+seed_skip=--skip=paper128
+seed_extra=()
 log_prefix=
 together=()
 for stage in "${stages[@]}"; do
@@ -101,6 +114,9 @@ for stage in "${stages[@]}"; do
   elif [ $in_seeds -eq 1 ] && [ "$stage" = --jax-rng ]; then
     seed_rng=(--rng jax)
     log_prefix=jaxrng_
+  elif [ $in_seeds -eq 1 ] && [ "$stage" = --paper128 ]; then
+    seed_skip=--skip=s2d64,_diffuse
+    seed_extra=(--skip-test-eval)
   elif [ $in_seeds -eq 1 ] && [ "$stage" = --together ]; then
     together=(together)
     expanded+=(together)
@@ -115,11 +131,12 @@ for stage in "${stages[@]}"; do
     expanded+=("$stage")
   fi
 done
+[ "$seed_skip" = --skip=paper128 ] || log_prefix=jaxrng128_
 seeds_file=results/torch_seed_replication.json
 seed_cmd() {
   [ ${#seed_order[@]} -gt 0 ] || [ -e "$out/$seeds_file" ] \
     || cp "$seeds_file" "$out/$seeds_file"
-  cmd=(python3 -m $m.seed_replication "$1" --skip=paper128 "${seed_order[@]}"
+  cmd=(python3 -m $m.seed_replication "$1" "$seed_skip" "${seed_extra[@]}" "${seed_order[@]}"
        "${seed_rng[@]}" "${own_file[@]}" --root "$root")
 }
 own_file=()
@@ -156,6 +173,7 @@ for stage in "${expanded[@]}"; do
     dense-jax) cmd=(python3 -m $m.dense_sweep 25 22 --rng jax --root "$root") ;;
     roc3-jax) cmd=(python3 -m $m.roc_3way --root "$root") ;;
     roc3-ce-spread) cmd=(python3 -m $m.roc_3way --ce-spread 3 --root "$root") ;;
+    roc3-ce-mean) cmd=(python3 -m $m.roc_3way --ce-mean 10 --root "$root") ;;
     f3) cmd=(python3 -m $m.f3_s2d64 --root "$root") ;;
     seed[0-9]*)
       seed_cmd "${stage#seed}"
