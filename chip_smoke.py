@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (anoddpm_torch) on one NVIDIA card and check it.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--part paper|model-size]
 
 run from the root of a checkout, on a machine with a CUDA card, `nvcc` and
 PyTorch built for CUDA.  Phases, each of which fails the run when it fails:
@@ -129,7 +129,15 @@ PyTorch built for CUDA.  Phases, each of which fails the run when it fails:
    "error" with exactly 1 K1, 71 flax-order K2 and 142 flax-order K2b a
    step, its loss printed beside the JAX package's TPU log (.15949, not
    held); and ms per train step with the JAX key and with a torch
-   Generator, in turns.
+   Generator, in turns; then the suite's paths at that width, and two
+   more configs at full width through the trainer's and the detector's
+   entry points, each with exact launches and its keys held to the JAX
+   schedule: args256syn128 in its band recipe (the paper part: one
+   dispatch of 8 steps, one DDPM-200 group) and args256syn64 in its own
+   recipe (the model-size part: 2 dispatches of 1 step, one DDPM-200
+   group, its new K2/K2b site shapes held to the plain flax order and
+   timed against their bytes bound).  `--part paper` or `--part
+   model-size` runs one of those two parts alone after the build.
 
 From phase 13 on, every (shape, dtype) that K2 and K2b launch at is
 recorded, and after each phase K2 and K2b are held against their plain
@@ -3098,14 +3106,15 @@ def jax_train_draws(seed, iters, substeps, batch, max_t):
     from its code (`anoddpm_tpu/train.py:54-58,126`, `training.py:84-85,
     132-140`), as the reference the port's trainer is held to: the loop
     key split(key(seed))[0], passed to every dispatch; one split per
-    substep; fold_in(step) split in three; t = randint(t_key) and the
-    simplex seeds bits(noise_key), here on the host.  Returns [(t_key,
-    noise_key, t, seeds)] per step."""
+    substep of a multi-step (none at 1 step a dispatch, whose step takes
+    the loop key itself); fold_in(step) split in three; t =
+    randint(t_key) and the simplex seeds bits(noise_key), here on the
+    host.  Returns [(t_key, noise_key, t, seeds)] per step."""
     from anoddpm_torch.compat import jax_random as jr
     loop_key, out = jr.key(seed).split()[0], []
     for step in range(iters):
-        k = loop_key
-        for _ in range(step % substeps + 1):
+        k = sub = loop_key
+        for _ in range(step % substeps + 1 if substeps > 1 else 0):
             k, sub = k.split()
         t_key, noise_key, _ = sub.fold_in(step).split(3)
         out.append((t_key, noise_key, jr.randint(t_key, (batch,), 0, max_t),
@@ -3565,28 +3574,93 @@ def jax_streams_path(card):
     del state
     torch.cuda.empty_cache()
     paper = jax_paper_path(card)
-    return [a + b for a, b in zip(total, paper)]
+    size = jax_model_size_path(card)
+    return [a + b + c for a, b, c in zip(total, paper, size)]
 
 
 JAX_PAPER_CONFIG = "256syn128"
 JAX_PAPER_SITES = 85
 # seed 0's epoch-0 loss on the TPU (the mean of its 16 steps)
 JAX_PAPER_LOG_LOSS = ("results/seed_replication.log:3", 0.12589)
+# the model-size token: args256syn64 in its own recipe (1 step a dispatch)
+JAX_SIZE_CONFIG = "256syn64"
+JAX_SIZE_SITES = 85
+JAX_SIZE_DISPATCHES = 2
 
 
 def jax_paper_path(card):
     """Phase 18's paper part: args256syn128 at full width on the JAX
-    package's streams in the band recipe (flax order, 8 substeps, batch 8),
-    through the s2d64 part's entry points: the first dispatch of seed 0's
-    epoch 0 (`train.dispatch_of` on `train.loop_stream`) under sync-debug
-    with exact launches, its t and seeds held to `jax_train_draws`; then
-    one volume group of `paper128_ddpm200` (DDPM, lambda 200) through
-    `detect.anomalous_metric_calculation` under sync-debug, with 201 K1 and
-    200 x 85 flax-order K2, its keys held to `jax_fb_keys` and its draws
-    by `hold_draws`.  Each wall on a line of its own."""
-    from anoddpm_torch import detect, diffusion
+    package's streams in the band recipe (flax order, 8 substeps, batch
+    8): `jax_full_width_part` with the first dispatch of 8 steps."""
     from anoddpm_torch.campaigns.seed_replication import (PROTOCOLS,
                                                           train_args_for)
+    return jax_full_width_part(
+        "paper", train_args_for(JAX_PAPER_CONFIG, 0, ROOT, "jax_rng"),
+        JAX_PAPER_SITES, 1, PROTOCOLS["paper128_ddpm200"], card,
+        log_loss=JAX_PAPER_LOG_LOSS)
+
+
+def jax_model_size_path(card):
+    """Phase 18's model-size part: args256syn64 (256^2, base 64, mults
+    (1, 1, 2, 2, 4, 4), attention at 16 and 8, batch 8) at full width on
+    the JAX package's streams in its own recipe
+    (`campaigns.model_size_quality.model_args`: 1 step a dispatch, flax
+    order, `bf16_norm` off): `jax_full_width_part` with the first
+    JAX_SIZE_DISPATCHES dispatches and model_size_quality's DDPM-200; then
+    K2 and K2b in the flax order at every (C, H, W, dtype) of its sites
+    that phase 17 did not hold, by `flax_site_case`'s rules, and their
+    device-only times at its sites beside the bytes bound
+    (`flax_order_times`)."""
+    from anoddpm_torch.campaigns import model_size_quality as msq
+    from anoddpm_torch.config import load_args
+    args = msq.model_args(JAX_SIZE_CONFIG, ROOT)
+    counts, sites = jax_full_width_part(
+        "model size", args, JAX_SIZE_SITES, JAX_SIZE_DISPATCHES,
+        dict(msq.PROTOCOLS)["ddpm200"], card, want_sites=True)
+    t0 = time.time()
+    held = set()
+    for config in (CONFIG, S2D64_CONFIG):
+        model = seeded_model(load_args(config,
+                                       config_dir=os.path.join(ROOT, "configs")))
+        held |= set(k2_sites(model, 1, MEASURE_IMG))
+        del model
+    shapes = sorted(set(sites) - held, key=str)
+    gen = torch.Generator(device=DEVICE).manual_seed(25)
+    worst = [0.0, 1.0, 0.0, 1.0]
+    for shape, dtype in shapes:
+        got = flax_site_case(shape, dtype, bool(args["bf16_norm"]), gen)
+        worst = [max(worst[0], got[0]), min(worst[1], got[1]),
+                 max(worst[2], got[2]), min(worst[3], got[3])]
+    log(f"JAX streams, model size: the flax order on the card vs the plain "
+        f"composition on the CPU at the {len(shapes)} (shape, dtype) of "
+        f"args{JAX_SIZE_CONFIG}'s {len(set(sites))} that phase 17 did not "
+        f"hold (N = 1, bf16_path {bool(args['bf16_norm'])}, forward and "
+        f"backward): output max|d| {worst[0]:.3e}, bit-equal in >= "
+        f"{worst[1]:.4f}; dx max|d| {worst[2]:.3e} of its largest, bit-equal "
+        f"in >= {worst[3]:.4f}; bit-identical backward reruns")
+    flax_order_times({JAX_SIZE_CONFIG: sites})
+    log(f"JAX streams, model size: site checks and times "
+        f"{time.time() - t0:.1f} s ({card})")
+    torch.cuda.empty_cache()
+    return counts
+
+
+def jax_full_width_part(what, args, n_sites, dispatches, protocol, card,
+                        log_loss=None, want_sites=False):
+    """A config at full width on the JAX package's streams through the
+    trainer's and the detector's entry points: flax's init of the seed, the
+    first `dispatches` dispatches of epoch 0 (`train.dispatch_of` on
+    `train.loop_stream`) under sync-debug with exactly 1 K1, k flax-order
+    K2 and 2k flax-order K2b a step (k counted from the model, required to
+    be `n_sites`), their t and seeds held to `jax_train_draws`; then one
+    volume group of DDPM at lambda 200 (`protocol`) through
+    `detect.anomalous_metric_calculation` under sync-debug, with 201 K1 and
+    200 k flax-order K2, its keys held to `jax_fb_keys` and its draws by
+    `hold_draws`.  Each wall on a line of its own; the dispatches' loss
+    beside `log_loss` (file:line, the TPU log's epoch-0 loss), not held.
+    Returns the launches, and with `want_sites` also the model's sites at
+    N = 1 (`k2_sites`)."""
+    from anoddpm_torch import detect, diffusion
     from anoddpm_torch.compat import jax_random as jr
     from anoddpm_torch.data.datasets import dataset_from_args
     from anoddpm_torch.data.pipeline import batch_iterator, prefetch_to_device
@@ -3594,78 +3668,81 @@ def jax_paper_path(card):
     from anoddpm_torch.ops.noise import sampler_from_args
     from anoddpm_torch.schedule import schedule_from_args
     from anoddpm_torch.train import dispatch_of, loop_stream, new_train_state
-    args = train_args_for(JAX_PAPER_CONFIG, 0, ROOT, "jax_rng")
-    b, substeps = int(args["Batch_Size"]), int(args["train_substeps"])
+    tag = f"JAX streams, {what}"
+    b, substeps = int(args["Batch_Size"]), int(args["train_substeps"] or 1)
     seed = int(args["seed"])
     sched = schedule_from_args(args).to(DEVICE)
     sampler = sampler_from_args(args)
     step, max_t = dispatch_of(args, sched, sampler)
-    want = jax_train_draws(seed, substeps, substeps, b, max_t)
+    want = jax_train_draws(seed, dispatches * substeps, substeps, b, max_t)
     loader = prefetch_to_device(batch_iterator(
         dataset_from_args(ROOT, args, train=True), b, shuffle=True), DEVICE,
         substeps=substeps)
     try:
-        x = next(loader)["image"]
+        xs = [next(loader)["image"] for _ in range(dispatches)]
     finally:
         loader.close()
     # the lazy set-up at these shapes on a throwaway state (torch's init:
     # flax's, drawn on the host, is the slow part)
     warm = new_train_state({**args, "rng": "torch"}, torch.device(DEVICE))
-    dispatch_of(args, sched, sampler)[0](warm, x, loop_stream(args, DEVICE))
+    dispatch_of(args, sched, sampler)[0](warm, xs[0], loop_stream(args, DEVICE))
     del warm
     torch.cuda.synchronize()
     t0 = time.time()
     state = new_train_state(args, torch.device(DEVICE))
-    log(f"JAX streams, paper: flax's init of seed 0 on the host and its copy "
-        f"to the card {time.time() - t0:.1f} s")
+    log(f"{tag}: flax's init of seed {seed} on the host and its copy to the "
+        f"card {time.time() - t0:.1f} s")
     k2 = sum(isinstance(m, NormSiLU) for m in state.model.modules())
-    require(k2 == JAX_PAPER_SITES, f"JAX streams, paper: {k2} norm+SiLU "
-            f"sites, args256syn128 has {JAX_PAPER_SITES}")
+    require(k2 == n_sites, f"{tag}: {k2} norm+SiLU sites, args"
+            f"{args['arg_num']} has {n_sites}")
     total, det_total = [0] * 5, [0] * 5
     recorder = KeyRecorder()
     try:
         recorder.on = True
         t0 = time.time()
+        losses = []
         with sync_debug_error():
-            loss = counted_launches(
-                "JAX streams, paper: a dispatch of 8 steps",
-                lambda: step(state, x, loop_stream(args, DEVICE))["loss"],
-                (substeps, 0, 0, k2 * substeps, 2 * k2 * substeps), total)
-        loss = float(loss)
-        log(f"JAX streams, paper: the first dispatch ({substeps} steps at "
-            f"batch {b}) {time.time() - t0:.2f} s")
+            for i, x in enumerate(xs):
+                losses.append(counted_launches(
+                    f"{tag}: dispatch {i} of {substeps} step(s)",
+                    lambda: step(state, x, loop_stream(args, DEVICE))["loss"],
+                    (substeps, 0, 0, k2 * substeps, 2 * k2 * substeps), total))
+        loss = sum(float(v) for v in losses) / len(losses)
+        log(f"{tag}: the first {dispatches} dispatch(es) ({substeps} "
+            f"step(s) each at batch {b}) {time.time() - t0:.2f} s")
         recorder.on = False
-        hold_draws("JAX streams, paper: the trainer's t and seeds",
-                   recorder.take(),
+        hold_draws(f"{tag}: the trainer's t and seeds", recorder.take(),
                    [d for t_key, noise_key, _, _ in want
                     for d in (("randint", t_key.words), ("seeds", noise_key.words))])
-        require(math.isfinite(loss), f"JAX streams, paper: loss {loss}")
-        where, log_loss = JAX_PAPER_LOG_LOSS
-        log(f"JAX streams, paper: seed 0's first dispatch drew the JAX "
-            f"trainer's t and seeds; its loss (the mean of its {substeps} "
-            f"steps) {loss:.5f} beside the TPU log's epoch-0 loss {log_loss} "
-            f"({where}, the mean of 16 steps; "
-            f"{100 * (loss / log_loss - 1):+.2f}%, not held; {card}); "
-            f"launches {total}, {k2} sites")
+        require(math.isfinite(loss), f"{tag}: loss {loss}")
+        beside = ""
+        if log_loss is not None:
+            where, value = log_loss
+            beside = (f" beside the TPU log's epoch-0 loss {value} ({where}, "
+                      f"the mean of 16 steps; {100 * (loss / value - 1):+.2f}%, "
+                      f"not held)")
+        log(f"{tag}: seed {seed}'s first {len(want)} step(s) drew the JAX "
+            f"trainer's t and seeds; their mean loss {loss:.5f}{beside} "
+            f"({card}); launches {total}, {k2} sites")
 
-        # one volume group of the paper's protocol through the detector
+        # one volume group of the protocol through the detector
         chain = diffusion.forward_backward
         steps = 200
 
         def counted_chain(*a, **k):
             with sync_debug_error():
                 return counted_launches(
-                    "JAX streams, paper: a DDPM-200 detection group",
+                    f"{tag}: a DDPM-200 detection group",
                     lambda: chain(*a, **k), (steps + 1, 0, 0, k2 * steps, 0),
                     det_total)
         diffusion.forward_backward = counted_chain
         os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
         try:
             with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build"),
-                                             prefix="jax-paper-") as root:
+                                             prefix="jax-part-") as root:
                 recorder.on = True
                 det_args = copy.copy(args)
-                det_args.update(PROTOCOLS["paper128_ddpm200"])
+                det_args.update(protocol)
                 t0 = time.time()
                 summary = detect.anomalous_metric_calculation(
                     args=det_args, root_dir=root, em=state.ema.eval(),
@@ -3676,30 +3753,59 @@ def jax_paper_path(card):
             diffusion.forward_backward = chain
         drawn = recorder.take()
         n = drawn[0][3].numel() if drawn else 0
-        log(f"JAX streams, paper: one DDPM-200 volume group ({n} slices) "
-            f"through the detector {det_s:.2f} s")
-        hold_draws("JAX streams, paper: the detector's seeds", drawn,
+        log(f"{tag}: one DDPM-200 volume group ({n} slices) through the "
+            f"detector {det_s:.2f} s")
+        hold_draws(f"{tag}: the detector's seeds", drawn,
                    jax_fb_keys(jr.key(seed + 1).split()[1], steps))
         require(det_total == [steps + 1, 0, 0, k2 * steps, 0],
-                f"JAX streams, paper: detection launches {det_total}")
+                f"{tag}: detection launches {det_total}")
         require(all(math.isfinite(summary[m]) for m in ("auc", "dice")),
-                f"JAX streams, paper: detection summary {summary}")
+                f"{tag}: detection summary {summary}")
     finally:
         recorder.close()
-    log(f"JAX streams, paper: the DDPM-200 group drew the JAX detector's "
-        f"{len(drawn)} seed sets; launches {det_total}; AUC "
-        f"{summary['auc']:.4f}, Dice {summary['dice']:.4f} (one dispatch's "
-        f"weights: not a quality figure)")
+    log(f"{tag}: the DDPM-200 group drew the JAX detector's {len(drawn)} "
+        f"seed sets; launches {det_total}; AUC {summary['auc']:.4f}, Dice "
+        f"{summary['dice']:.4f} (the weights of {len(want)} step(s): not a "
+        f"quality figure)")
+    sites = k2_sites(state.model, 1, MEASURE_IMG) if want_sites else None
     del state
     torch.cuda.empty_cache()
-    return [a + b for a, b in zip(total, det_total)]
+    counts = [a + b for a, b in zip(total, det_total)]
+    return (counts, sites) if want_sites else counts
 
 
-def main():
+def part_main(argv):
+    """`--part paper|model-size`: one full-width part of phase 18 alone,
+    after the build, with the K2 and K2b shapes it launched held against
+    their plain versions; the last line is the ok line."""
+    parts = {"paper": jax_paper_path, "model-size": jax_model_size_path}
+    require(len(argv) == 2 and argv[0] == "--part" and argv[1] in parts,
+            f"usage: chip_smoke.py [--part {'|'.join(parts)}]")
+    t_start = time.time()
+    name = device_info()
+    build_kernels()
+    probe_writers()
+    record_launch_shapes()
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    counts = parts[argv[1]](card)
+    check_launched_shapes(f"the {argv[1]} part")
+    log(f"the {argv[1]} part: launches (K1, K2, K2b, flax K2, flax K2b) "
+        f"{counts}; {time.time() - t_start:.1f} s with the build")
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def main(argv=None):
+    argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
+    if argv:
+        return part_main(argv)
     from anoddpm_torch.config import load_args
 
     t_start = time.time()

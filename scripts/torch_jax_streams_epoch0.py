@@ -4,7 +4,7 @@ JAX-stream seeds pair with their JAX twins.
 
     python3 scripts/torch_jax_streams_epoch0.py [--config 256syn64s2d|256syn128]
         [--seeds 0 1 2 3 4] [--device cuda|cpu] [--small] [--jax-side]
-        [--root DIR] [--out PATH]
+        [--set KEY=VALUE ...] [--root DIR] [--out PATH]
 
 For each seed S the port trains the config's band recipe
 (`campaigns.seed_replication.train_args_for(..., "jax_rng")`: the flax
@@ -25,7 +25,9 @@ At full width this runs on the card (the default device).  `--small` cuts
 the model to 32^2 (base 32, mults 1 2) for a check on the CPU, where no
 gate is read, and `--jax-side` then also trains each seed's epoch 0
 through the JAX package in a subprocess (JAX_PLATFORMS=cpu; this script
-imports no JAX) and records its loss and VLB beside the port's.  The JSON
+imports no JAX) and records its loss and VLB beside the port's; `--set`
+cuts that check further (say `Batch_Size=2 iters_per_epoch=8`: one
+dispatch of 8 steps at batch 2, a CPU-minute instead of several).  The JSON
 goes to --out (the config's gate file, `campaigns.band.EPOCH0_GATES`:
 results/torch_jax_streams_epoch0.json for 256syn64s2d,
 results/torch_jax_streams_epoch0_256syn128.json for 256syn128; with
@@ -92,11 +94,13 @@ def _sweep_seconds(line: str) -> float:
     return float(line.split("VLB sweep ")[1].split()[0])
 
 
-def run_args(config: str, seed: int, setting: str, small: bool):
+def run_args(config: str, seed: int, setting: str, small: bool,
+             cut=None):
     args = train_args_for(config, seed, ROOT, "jax_rng")
     args.update(SETTINGS[setting])
     if small:
         args.update(SMALL)
+        args.update(cut or {})
     args["arg_num"] = f"{args['arg_num']}_e0_{setting}"
     args["skip_test_eval"] = True
     return args
@@ -156,6 +160,8 @@ def main(argv=None):
                    help="32^2, base 32: a check on the CPU, no gate")
     p.add_argument("--jax-side", action="store_true",
                    help="with --small: the JAX package's epoch 0 beside")
+    p.add_argument("--set", nargs="*", default=[], metavar="KEY=VALUE",
+                   help="with --small: integer config keys cut further")
     p.add_argument("--settings", nargs="*", default=list(SETTINGS),
                    choices=list(SETTINGS), help="the settings tried, in order")
     p.add_argument("--root", default=os.path.join(ROOT, "build", "epoch0"))
@@ -163,9 +169,10 @@ def main(argv=None):
                    help="the config's gate file, or with --small its "
                         "name ending _cpu32.json")
     ns = p.parse_args(sys.argv[1:] if argv is None else argv)
-    if ns.jax_side and not ns.small:
-        raise SystemExit("--jax-side runs the JAX package on the CPU: "
+    if (ns.jax_side or ns.set) and not ns.small:
+        raise SystemExit("--jax-side and --set cut the CPU check: "
                          "only with --small")
+    cut = {k: int(v) for k, v in (kv.split("=", 1) for kv in ns.set)}
     gate = EPOCH0_GATES[ns.config]
     out_path = ns.out or (gate[:-len(".json")] + "_cpu32.json" if ns.small
                           else gate)
@@ -180,7 +187,7 @@ def main(argv=None):
                {"log": where, "log_loss": log_loss, "log_vlb": log_vlb,
                 "tried": {}, "setting": None, "paired": False})
         for setting in ns.settings:
-            args = run_args(ns.config, seed, setting, ns.small)
+            args = run_args(ns.config, seed, setting, ns.small, cut)
             got = port_epoch0(args, os.path.join(ns.root, "port"), ns.device)
             row["tried"][setting] = got
             if ns.small:
@@ -205,6 +212,7 @@ def main(argv=None):
                 break
         rows[str(seed)] = row
     out = {"config": ns.config, "device": ns.device, "small": ns.small,
+           **({"set": cut} if cut else {}),
            "gate": GATE, "settings": SETTINGS, "seeds": rows}
     if not ns.small:
         print("paired seeds:", sorted(int(s) for s, r in rows.items()

@@ -34,6 +34,18 @@
 #   roc3-ce-mean  the context encoder's stage alone, 10 fresh runs under
 #            cuDNN's default (`roc_3way --ce-mean 10`), their mean held to
 #            the JAX file's CE AUC; in .../ce_default10.json;
+#   model-size-jax  the JAX package's model-size token on its random
+#            streams: configs/args256syn64_jaxrng.json written under the
+#            run's root (`campaigns.model_size_quality --write-config
+#            256syn64`: the config's own recipe, 1 step a dispatch, the
+#            flax norm order, `rng: "jax"`, seed 0), trained there by the
+#            train CLI (`python -m anoddpm_torch.train 256syn64_jaxrng`,
+#            600 epochs), then scored in DDPM-200, DDIM-25 and DDIM-15 at
+#            eta 1 (`model_size_quality 256syn64_jaxrng`), the scores in
+#            OUT/results/torch_model_size_jaxrng.json (pair them on the CPU
+#            with `python -m anoddpm_torch.campaigns.model_size_quality
+#            --paired`); model-size-jax128 does the same for args256syn128
+#            (token 256syn128_jaxrng), the control, into the same file;
 #   f3       `campaigns.f3_s2d64`: that seed-0 model in three
 #            seed-replication cells against the JAX package's band;
 #   seeds [--flax-order] [--jax-rng] [--together] S...  for each seed S,
@@ -61,6 +73,9 @@
 #            tokens 256syn128_s<S>_jaxrng, entries in
 #            results/torch_jax_rng_256syn128_seeds<S>.json, logs
 #            jaxrng128_seed<S>.log).
+# A stage named with a trailing & (quote it: 'model-size-jax&') starts in
+# the background, its log its own, beside the stages after it; the script
+# waits for it at the end and fails if it failed.
 # diffuse and longer need train's model, f3 needs dense's; nothing under
 # build/ outlives a remote call, so a call runs train..longer, dense..f3 or
 # seeds with the seeds it trains (two s2d64 seeds one after another fit in
@@ -81,7 +96,7 @@ stages=(${*:-train diffuse longer dense f3})
 root=build/s2d64
 mkdir -p "$root/configs" "$out/results" "$out/metrics" "$out/final-outputs"
 cp configs/args256syn64s2d.json configs/args256syn64s2dg.json \
-  configs/args256syn128.json "$root/configs/"
+  configs/args256syn128.json configs/args256syn64.json "$root/configs/"
 for d in results metrics final-outputs; do
   [ -e "$root/$d" ] || ln -s "$(cd "$out" && pwd)/$d" "$root/$d"
 done
@@ -95,6 +110,31 @@ nvidia-smi --query-gpu=timestamp,clocks.sm,power.draw,power.limit,temperature.gp
 smi=$!
 trap 'kill $smi 2>/dev/null; wait $smi 2>/dev/null' EXIT
 m=anoddpm_torch.campaigns
+here=$(pwd)
+# the model-size token of config $1 on the JAX streams, trained by the
+# train CLI under $root (it reads configs/ and writes model/ and metrics/
+# under its working directory), then scored
+model_size_stage() {
+  python3 -m $m.model_size_quality --write-config "$1" --root "$root" &&
+    (cd "$root" && PYTHONPATH="$here${PYTHONPATH:+:$PYTHONPATH}" \
+       python3 -m anoddpm_torch.train "$1_jaxrng") &&
+    python3 -m $m.model_size_quality "$1_jaxrng" --root "$root" \
+      --out results/torch_model_size_jaxrng.json
+}
+# the stages started in the background, and their wait at the end
+bg_pids=()
+bg_logs=()
+finish() {
+  local rc=$1 i r
+  for i in "${!bg_pids[@]}"; do
+    wait "${bg_pids[$i]}"
+    r=$?
+    grep -v '^\[' "$out/${bg_logs[$i]}.log" | tail -n 40
+    echo "stage ${bg_logs[$i]} (background) rc=$r"
+    [ $r -eq 0 ] || rc=$r
+  done
+  exit $rc
+}
 # the seeds stage: one stage "seed<S>" per seed number after "seeds", or one
 # stage "together" that runs them all at once
 expanded=()
@@ -161,8 +201,13 @@ for stage in "${expanded[@]}"; do
       [ $r -eq 0 ] || rc=$r
       i=$((i + 1))
     done
-    [ $rc -eq 0 ] || exit $rc
+    [ $rc -eq 0 ] || finish $rc
     continue
+  fi
+  background=0
+  if [ "${stage%&}" != "$stage" ]; then
+    background=1
+    stage=${stage%&}
   fi
   log=$stage
   case $stage in
@@ -175,15 +220,28 @@ for stage in "${expanded[@]}"; do
     roc3-ce-spread) cmd=(python3 -m $m.roc_3way --ce-spread 3 --root "$root") ;;
     roc3-ce-mean) cmd=(python3 -m $m.roc_3way --ce-mean 10 --root "$root") ;;
     f3) cmd=(python3 -m $m.f3_s2d64 --root "$root") ;;
+    model-size-jax) cmd=(model_size_stage 256syn64) ;;
+    model-size-jax128) cmd=(model_size_stage 256syn128) ;;
     seed[0-9]*)
       seed_cmd "${stage#seed}"
       log=$log_prefix$stage ;;
     *) echo "unknown stage $stage"; exit 2 ;;
   esac
   start=$(date +%s)
+  if [ $background -eq 1 ]; then
+    # its log ends with its own wall time
+    ("${cmd[@]}"; r=$?
+     echo "stage $log rc=$r after $(( $(date +%s) - start )) s"; exit $r) \
+      > "$out/$log.log" 2>&1 &
+    bg_pids+=($!)
+    bg_logs+=("$log")
+    echo "stage $log started in the background"
+    continue
+  fi
   "${cmd[@]}" > "$out/$log.log" 2>&1
   rc=$?
   grep -v '^\[' "$out/$log.log" | tail -n 40
   echo "stage $log rc=$rc after $(( $(date +%s) - start )) s"
-  [ $rc -eq 0 ] || exit $rc
+  [ $rc -eq 0 ] || finish $rc
 done
+finish 0

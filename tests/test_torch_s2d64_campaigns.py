@@ -480,6 +480,11 @@ JAX_EVIDENCE = {
     # the 22 per-volume CSVs and plots, by name and content
     "metrics/ARGS=256syn64s2d":
         "21d6b1c0bc467367d39aa66f3a1daaa63672fe7e1c58e8a3c6ae145d54aaa627",
+    # round 1's model-size and s2d quality files (75887cc)
+    "results/model_size_quality.json":
+        "545a3c3230be4256c8eb3b84cb46ccf49930c6c1b17eb2a0a3efa8f96d463336",
+    "results/s2d_quality.json":
+        "a7707e2a7fbf74f32ad9ba4c12126f90e16ce13ea9d8aa3cc9c9fe20e740157c",
 }
 
 
